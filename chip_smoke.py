@@ -18,9 +18,11 @@ Phases, in order; any failed check exits non-zero and prints no result:
    block 16, 2048 blocks): 16 greedy requests of 128/512/1000/2000 prompt
    tokens and 32 new tokens each; the kernels' launch counters are zeroed
    just before and read just after, and must show both kernels ran;
-5. timings at the serve shapes: kernel, plain version and library call
-   (CUDA events, median of 20 launches with a cold L2), each beside the
-   least time the card could take (bound);
+5. timings at the serve shapes: each kernel checked once more against its
+   plain version on the exact serve-shape inputs (flash at the 2048 bucket,
+   paged with a 256-entry table over the 2048-block pool), then kernel,
+   plain version and library call timed (CUDA events, median of 20 launches
+   with a cold L2), each beside the least time the card could take (bound);
 6. the last line: {"ok": true, "device": {...}}.
 
 It imports only repro_torch, torch, numpy and the standard library.
@@ -215,8 +217,7 @@ def _model(dtype, attn_impl):
 
 def phase_parity():
     """Full-width fp32: kernels vs plain versions through the model."""
-    from repro_torch.runtime.steps import (paged_decode_step, paged_reshard,
-                                           prefill_step)
+    from repro_torch.runtime.steps import paged_reshard
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("parity: float32, TF32 off for matmul and cuDNN")
@@ -235,7 +236,7 @@ def phase_parity():
         shape, dt = model.paged_cache_shape(n_blocks, bs)
         pool = {k: torch.zeros(shape, dtype=dt, device="cuda")
                 for k in ("k", "v")}
-        logits, pcache = prefill_step(model, toks, lengths)
+        logits, pcache = model.prefill(toks, lengths)
         paged_reshard(pool, pcache, table[:, :bucket // bs])
         out, ids = [logits], []
         for t in range(steps):
@@ -244,7 +245,7 @@ def phase_parity():
             ids_t = torch.tensor([[nxt]], dtype=torch.int32, device="cuda")
             pos = torch.tensor([prompt + t], dtype=torch.int32,
                                device="cuda")
-            out.append(paged_decode_step(model, pool, table, pos, ids_t))
+            out.append(model.decode_paged(pool, table, ids_t, pos))
         torch.cuda.synchronize()
         return out, ids
 
@@ -387,19 +388,23 @@ def phase_timings(launches, counts, worst):
                randn(gen, B, Hkv, T, D, dtype=bf),
                randn(gen, B, Hkv, T, D, dtype=bf))
     pos = torch.arange(T, device="cuda", dtype=torch.int32)
+    tol_out, tol_lse = _tols(bf)
+    out, lse = flash_fwd(q, k, v, q_pos=pos, causal=True, q_start=None)
+    torch.cuda.synchronize()
+    r_out, r_lse = flash_fwd_plain(q, k, v, q_pos=pos, causal=True,
+                                   q_start=None)
+    e_out, e_lse = max_err(out, r_out), max_err(lse, r_lse)
+    check(e_out <= tol_out and e_lse <= tol_lse,
+          f"flash at the serve shape: out err {e_out:.3g} lse err "
+          f"{e_lse:.3g}")
+    worst["flash_fwd"] = max(worst["flash_fwd"], e_out)
+    del out, lse, r_out, r_lse
     ms = time_ms(lambda: flash_fwd(q, k, v, q_pos=pos, causal=True,
                                    q_start=None))
     plain_ms = time_ms(lambda: flash_fwd_plain(q, k, v, q_pos=pos,
                                                causal=True, q_start=None))
-    try:
-        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                     enable_gqa=True)
-        lib()
-    except TypeError:          # torch without enable_gqa: expand K/V first
-        ke, ve = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (k, v))
-        lib = lambda: F.scaled_dot_product_attention(q, ke, ve,
-                                                     is_causal=True)
-    library_ms = time_ms(lib)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
     pairs = T * (T + 1) // 2                     # causal (q, k) pairs
     flops = 4 * D * pairs * Hq * B
     nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) \
@@ -440,6 +445,11 @@ def phase_timings(launches, counts, worst):
     qd = randn(gen, B, Hq, D, dtype=bf)
     pk, pv = randn(gen, P, bs, Hkv, D, dtype=bf), randn(gen, P, bs, Hkv, D,
                                                         dtype=bf)
+    out = paged_attention(qd, pk, pv, table, pos_t, kv_map)
+    torch.cuda.synchronize()
+    e = max_err(out, paged_attention_plain(qd, pk, pv, table, pos_t, kv_map))
+    check(e <= tol_out, f"paged at the serve shape: err {e:.3g}")
+    worst["paged_attention"] = max(worst["paged_attention"], e)
     ms = time_ms(lambda: paged_attention(qd, pk, pv, table, pos_t, kv_map))
     plain_ms = time_ms(lambda: paged_attention_plain(qd, pk, pv, table,
                                                      pos_t, kv_map))

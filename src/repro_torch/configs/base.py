@@ -121,85 +121,22 @@ _DTYPES = ("float32", "bfloat16", "float16")
 
 @dataclass(frozen=True)
 class RunConfig:
+    """Run options of the serve slice.  The reference's training, pipeline,
+    sequence-sharding and multi-rank fields (optimizer, ZeRO, loss scaling,
+    remat, chunk sizes, schedules, ...) act on paths the port does not have
+    yet and come back with those slices; passing one is a TypeError rather
+    than a setting that silently does nothing."""
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    remat: str = "full"          # none | full | dots
-    loss_chunk: int = 512        # per-device tokens per CE chunk
-    q_chunk: int = 512
-    kv_chunk: int = 1024
-    use_pallas: bool = False
-    capacity_factor: float = 1.25
-    scan_blocks: bool = True
-    lr: float = 3e-4
-    weight_decay: float = 0.1
-    grad_clip: float = 1.0
-    optimizer: str = "adamw"     # adamw | lamb
-    zero1: bool = False          # shard optimizer state over data axis
-    # ZeRO stage (DESIGN.md §9): 0 = replicated optimizer state, 1 = state
-    # sharded over the leaf's replicated DP axes (equivalent to zero1=True;
-    # either knob enables it).  Stages 2/3 (grad / param sharding) are not
-    # implemented.
-    zero_stage: int = 0
-    # Static loss scaling for low-precision compute: the loss is multiplied
-    # by loss_scale before the backward and gradients are unscaled before
-    # clipping/optimizer — a numerics lever for float16 (bf16's exponent
-    # range usually needs none; keep 1.0 there).
-    loss_scale: float = 1.0
-    grad_compression: str = "none"  # none | bf16
-    # MoE expert-weight layout: "2d" = paper-style SUMMA sharding per expert
-    # over (row,col); "local" = expert weights local to their depth slice,
-    # tokens split over col (beyond-paper; trades weight gathers for much
-    # smaller token gathers — see EXPERIMENTS.md §Perf)
-    moe_expert_layout: str = "2d"
-    # SUMMA execution schedule of the Tesseract matmuls ("fused" | "ring" |
-    # "auto"); the config-surface default that launchers apply to
-    # ParallelContext (the per-op dispatch lives on ctx.matmul_schedule,
-    # DESIGN.md §2b; "auto" resolves per-op from the token-block size).
-    matmul_schedule: str = "fused"
-    # Attention data path ("jnp" | "pallas" | "auto"); like matmul_schedule
-    # this is the config surface that launchers copy onto
-    # ParallelContext.attn_impl, where the per-op dispatch lives
-    # (DESIGN.md §10).  In the port (kernels/ops.py): "pallas" runs the
-    # Hopper kernels, "jnp" their plain PyTorch versions, "auto" the
-    # kernels on a CUDA device and the plain versions on the CPU.
+    # Attention data path ("jnp" | "pallas" | "auto"), the config surface
+    # that launchers copy onto ParallelContext.attn_impl.  In the port
+    # (kernels/ops.py): "pallas" runs the Hopper kernels, "jnp" their plain
+    # PyTorch versions, "auto" the kernels on a CUDA device and the plain
+    # versions on the CPU.
     attn_impl: str = "jnp"
-    # --- long-context sequence sharding (DESIGN.md §15) ---
-    # Number of sequence-axis shards: launchers copy this onto
-    # ParallelContext.seq, adding the "seq" mesh axis when > 1 so train
-    # activations are time-sharded and attention rings K/V around the seq
-    # axis.  Incompatible with pipe_stages > 1 (core/mesh.py rejects it).
-    seq_shards: int = 1
-    # Attention SCHEDULE across seq shards ("local" | "ring" | "striped" |
-    # "auto"); the config surface for ParallelContext.attn_schedule.
-    # "auto" resolves to striped causal rings for training; with
-    # seq_shards == 1 "ring"/"auto" also switch seq-sharded prefill from
-    # gather-full-KV to a (depth, row) ring.
-    attn_schedule: str = "local"
-    # --- pipeline / accumulation knobs (DESIGN.md §8) ---
-    # Pipeline-parallel stage count: launchers build the 5-axis
-    # [pipe x data x depth x row x col] mesh when > 1 and
-    # runtime/steps.build_train_step switches to the 1F1B schedule.
-    pipe_stages: int = 1
-    # Microbatches per 1F1B flush (0 -> 2 * pipe_stages).  The bubble
-    # fraction is (S-1)/(M+S-1); more microbatches amortize it.
-    pipeline_microbatches: int = 0
-    # Default gradient-accumulation factor for the train loop; elastic
-    # re-plans (runtime/elastic.Replan.accum_steps) override it so a device
-    # shrink preserves the global batch per optimizer step.
-    accum_steps: int = 1
-    # --- deterministic fault injection (DESIGN.md §11) ---
-    # Compact FaultPlan DSL ("" = no injection), e.g.
-    # "train.grads@5:nan;ckpt.write@9:corrupt(0,bit_flip)" — parsed by
-    # runtime/faults.FaultPlan.parse and executed at the registered hook
-    # points in the train loop and serve engine.
+    # Deterministic fault injection plan of the reference ("" = none); not
+    # ported yet, so a non-empty plan is refused.
     fault_plan: str = ""
-    # Seed for FaultPlan.random schedules and corruption byte positions;
-    # the whole fault sequence is a pure function of (fault_seed, site,
-    # kind, step), so a rerun replays identically.
-    fault_seed: int = 0
-    # Consecutive non-finite (NaN/Inf) update skips tolerated per step
-    # before the train loop backs off loss_scale / raises (§11 ladder).
-    nan_skip_limit: int = 2
 
     def __post_init__(self):
         if self.param_dtype not in _DTYPES:
@@ -208,44 +145,15 @@ class RunConfig:
         if self.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {_DTYPES}, "
                              f"got {self.compute_dtype!r}")
-        if self.zero_stage not in (0, 1):
-            raise ValueError(f"zero_stage must be 0 or 1 (stage 2/3 grad/"
-                             f"param sharding not implemented), got "
-                             f"{self.zero_stage}")
-        if not self.loss_scale > 0:
-            raise ValueError(f"loss_scale must be > 0, got {self.loss_scale}")
-        if self.optimizer not in ("adamw", "lamb"):
-            raise ValueError(f"optimizer must be 'adamw' or 'lamb', "
-                             f"got {self.optimizer!r}")
         if self.attn_impl not in ("jnp", "pallas", "auto"):
             raise ValueError(f"attn_impl must be 'jnp', 'pallas' or 'auto', "
                              f"got {self.attn_impl!r}")
-        if self.attn_schedule not in ("local", "ring", "striped", "auto"):
-            raise ValueError(f"attn_schedule must be 'local', 'ring', "
-                             f"'striped' or 'auto', got "
-                             f"{self.attn_schedule!r}")
-        if self.seq_shards < 1:
-            raise ValueError(f"seq_shards must be >= 1, "
-                             f"got {self.seq_shards}")
-        if self.nan_skip_limit < 0:
-            raise ValueError(f"nan_skip_limit must be >= 0, "
-                             f"got {self.nan_skip_limit}")
         if self.fault_plan:
             # fault injection (runtime/faults.py of the JAX package) is not
             # ported yet: refuse a plan rather than silently ignore it
             raise NotImplementedError(
                 "fault_plan is not supported by repro_torch yet "
                 "(ROADMAP Queue A, item A3: fault injection)")
-
-    @property
-    def zero_enabled(self) -> bool:
-        """ZeRO-1 optimizer-state sharding on (either knob)."""
-        return self.zero1 or self.zero_stage >= 1
-
-    @property
-    def master_weights(self) -> bool:
-        """fp32 master copies are kept whenever params are low-precision."""
-        return self.param_dtype != "float32"
 
 
 @dataclass(frozen=True)

@@ -22,78 +22,35 @@ AXIS_DATA = "data"
 AXIS_DEPTH = "depth"
 AXIS_ROW = "row"
 AXIS_COL = "col"
-AXIS_SEQ = "seq"
-LOGICAL_AXES = (AXIS_DATA, AXIS_DEPTH, AXIS_ROW, AXIS_COL)
-# Mesh axis order when the sequence axis is active (ctx.seq > 1): "seq" sits
-# between "data" and the TP group so each seq shard owns a contiguous
-# [depth, row, col] sub-mesh (ring neighbors are physical neighbors).
-LOGICAL_AXES_SEQ = (AXIS_DATA, AXIS_SEQ, AXIS_DEPTH, AXIS_ROW, AXIS_COL)
 
 
 @dataclass(frozen=True)
 class ParallelContext:
-    """Hashable parallelism descriptor (usable as a custom_vjp nondiff arg)."""
+    """Hashable parallelism descriptor.
+
+    The copy keeps the layout fields and the attention data path.  The
+    reference's perf knobs (weight/activation gather caching, dgrad
+    reduction, the SUMMA ``matmul_schedule`` and the seq-ring
+    ``attn_schedule``) act only across ranks and come back with the
+    multi-rank slice (ROADMAP Queue A, item A1)."""
 
     mode: str = "tesseract"  # tesseract | summa2d | megatron1d | gspmd
     data: int = 1
     depth: int = 1
     rows: int = 1
     cols: int = 1
-    # Sequence-axis shards (ring/striped flash attention, DESIGN.md §15).
-    # seq > 1 adds a "seq" mesh axis between "data" and the TP group and
-    # shards the time dimension of train activations; attention then streams
-    # K/V around the seq ring instead of holding the full sequence.
+    # Sequence-axis shards (ring/striped flash attention in the reference).
     seq: int = 1
-    # --- knobs (perf levers; defaults are the paper-faithful choices) ---
-    # Cache the row-gathered weight blocks from fwd as residuals for bwd
-    # ("store the parameter matrices inside each processor", paper 3.2.1).
-    cache_weight_gather: bool = True
-    # Cache the col-gathered activations (paper does not; costs memory).
-    cache_act_gather: bool = False
-    # Reduce dW over the depth axis inside each op (paper: "all_reduce after
-    # the computation of B'") vs. deferring to one fused step-level reduction.
-    reduce_dgrad_in_op: bool = True
-    # Accumulate matmuls in fp32 regardless of compute dtype.
-    accum_fp32: bool = True
-    # Wire format of the dW reduce-scatter / depth all-reduce inside the
-    # matmul bwd: True reduces in bf16 (halves those collective bytes; the
-    # local partial products are still fp32-accumulated).  Beyond-paper lever.
-    dgrad_rs_bf16: bool = False
-    # SUMMA execution schedule of the Tesseract matmuls (DESIGN.md §2b):
-    #   "fused" — one all_gather per operand, then a single local einsum
-    #             (q× gathered-operand peak memory, zero overlap);
-    #   "ring"  — Cannon-style skewed double ring over (row, col): one
-    #             ppermute'd block per step contracted while the next block
-    #             is in flight (O(2·block) peak, comm/compute overlap);
-    #   "auto"  — per-op: ring for training/prefill-sized token blocks on
-    #             q >= 4 grids, fused for decode-sized ones (a single-token
-    #             step can't hide the skew/shift latency — DESIGN.md §2b/§7).
-    matmul_schedule: str = "fused"
-    # Attention data path (DESIGN.md §10): "jnp" = the pure-jnp streaming
-    # reference, "pallas" = the fused flash / paged-decode kernels (interpret
-    # mode off-TPU, so parity checks exercise the kernel math on CPU),
-    # "auto" = kernels on TPU, jnp elsewhere (per-backend resolution,
-    # kernels/ops.py::effective_attn_impl).
+    # Attention data path: "jnp" = the plain PyTorch versions, "pallas" =
+    # the Hopper kernels, "auto" = the kernels on a CUDA device and the
+    # plain versions on the CPU (kernels/ops.py::effective_attn_impl).
     attn_impl: str = "jnp"
-    # Attention SCHEDULE (orthogonal to attn_impl, which picks the data path):
-    #   "local"   — every device holds the full sequence (the pre-seq-axis
-    #               behavior; required when seq == 1 ... unless "ring"/"auto"
-    #               is requested for seq-sharded prefill, see below);
-    #   "ring"    — contiguous seq shards; K/V stream around the seq ring via
-    #               ppermute, merged with a stable logsumexp combine;
-    #   "striped" — like ring, but tokens are round-robin striped across
-    #               shards so causal work stays balanced per rank (train-only);
-    #   "auto"    — striped for causal full-window training, ring otherwise.
-    # With seq == 1, "ring"/"auto" additionally switch seq-sharded PREFILL
-    # attention from gather-full-KV to a ring over (depth, row).
-    attn_schedule: str = "local"
 
     # axis names (fixed; kept here so ops never hard-code strings)
     axis_data: str = AXIS_DATA
     axis_depth: str = AXIS_DEPTH
     axis_row: str = AXIS_ROW
     axis_col: str = AXIS_COL
-    axis_seq: str = AXIS_SEQ
 
     def __post_init__(self):
         if self.mode in ("tesseract", "summa2d"):
@@ -106,48 +63,12 @@ class ParallelContext:
                 raise ValueError("megatron1d uses rows=depth=1, cols=p")
         elif self.mode != "gspmd":
             raise ValueError(f"unknown mode {self.mode!r}")
-        if self.matmul_schedule not in ("fused", "ring", "auto"):
-            raise ValueError(
-                f"matmul_schedule must be 'fused', 'ring' or 'auto', "
-                f"got {self.matmul_schedule!r}")
-        if self.matmul_schedule in ("ring", "auto") and self.mode == "megatron1d":
-            raise ValueError(
-                f"matmul_schedule={self.matmul_schedule!r} is a SUMMA "
-                "schedule selector; megatron1d has no [q, q] grid to ring over")
         if self.attn_impl not in ("jnp", "pallas", "auto"):
             raise ValueError(
                 f"attn_impl must be 'jnp', 'pallas' or 'auto', "
                 f"got {self.attn_impl!r}")
-        if self.attn_schedule not in ("local", "ring", "striped", "auto"):
-            raise ValueError(
-                f"attn_schedule must be 'local', 'ring', 'striped' or "
-                f"'auto', got {self.attn_schedule!r}")
         if self.seq < 1:
             raise ValueError(f"seq must be >= 1, got {self.seq}")
-        if self.seq > 1:
-            if self.mode not in ("tesseract", "summa2d"):
-                raise ValueError(
-                    f"seq={self.seq} sharding requires mode 'tesseract' or "
-                    f"'summa2d', got {self.mode!r}")
-            if self.attn_schedule == "local":
-                raise ValueError(
-                    "seq > 1 shards the sequence; attn_schedule must be "
-                    "'ring', 'striped' or 'auto' (got 'local')")
-
-    # ---- derived sizes ----
-    @property
-    def q(self) -> int:
-        return self.cols
-
-    @property
-    def tp(self) -> int:
-        """Size of the tensor-parallel group (the 'model' mesh axis)."""
-        return self.depth * self.rows * self.cols
-
-    @property
-    def dq(self) -> int:
-        """Number of activation row-blocks within the TP group (paper: d*q)."""
-        return self.depth * self.rows
 
     @property
     def batch_shards(self) -> int:
@@ -157,42 +78,12 @@ class ParallelContext:
     def replace(self, **kw) -> "ParallelContext":
         return dataclasses.replace(self, **kw)
 
-    # ---- axis groups ----
-    @property
-    def mesh_axes(self) -> tuple:
-        """Logical mesh axis names for this context (excl. any pipe axis)."""
-        return LOGICAL_AXES_SEQ if self.seq > 1 else LOGICAL_AXES
-
-    def train_attn_schedule(self) -> str:
-        """Resolve attn_schedule for the seq-sharded TRAIN path.
-
-        "auto" means striped: it balances causal work per rank at no extra
-        comm.  Models with a sliding window must ask for "ring" explicitly
-        (striping breaks window contiguity; ring_attention raises if asked).
-        The resolution must not depend on the model so that token striping
-        (runtime/steps.py), RoPE positions (core/ops.py) and the ring mask
-        (core/ring_attention.py) always agree."""
-        if self.seq == 1:
-            return "local"
-        return "striped" if self.attn_schedule == "auto" else self.attn_schedule
-
     @property
     def token_axes(self) -> tuple:
         """Mesh axes that shard the token (batch*seq) dim of activations."""
         if self.mode == "megatron1d":
             return (self.axis_data,)
         return (self.axis_data, self.axis_depth, self.axis_row)
-
-    @property
-    def seq_shard_axes(self) -> tuple:
-        """Axes used for sequence sharding in small-batch (prefill) layouts."""
-        if self.mode == "megatron1d":
-            return (self.axis_col,)
-        return (self.axis_depth, self.axis_row)
-
-    @property
-    def model_axes(self) -> tuple:
-        return (self.axis_depth, self.axis_row, self.axis_col)
 
 
 def require_single_device(ctx: ParallelContext) -> None:

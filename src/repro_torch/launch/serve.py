@@ -12,7 +12,9 @@ Requests with mixed prompt lengths are admitted into a fixed slot batch,
 prefilled in buckets, scattered into the block pool and decoded one
 fixed-shape step at a time; finished sequences retire in place.  Weights
 are random, from a fixed seed; params are float32 like the JAX launcher's.
-Only the one-device layout runs so far (data = depth = rows = cols = 1).
+Only the one-device layout runs so far, so the reference's mesh flags
+(--mode, --data, --depth, --rows, --cols, --matmul-schedule) come back
+with the multi-rank slice (ROADMAP Queue A, item A1).
 """
 from __future__ import annotations
 
@@ -22,8 +24,6 @@ import argparse
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--mode", default="tesseract",
-                    choices=("tesseract", "summa2d", "megatron1d"))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--n-slots", type=int, default=4)
@@ -36,12 +36,6 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
-    ap.add_argument("--data", type=int, default=1)
-    ap.add_argument("--rows", type=int, default=1)
-    ap.add_argument("--cols", type=int, default=1)
-    ap.add_argument("--depth", type=int, default=1)
-    ap.add_argument("--matmul-schedule", default="fused",
-                    choices=("fused", "ring", "auto"))
     ap.add_argument("--attn-impl", default="auto",
                     choices=("jnp", "pallas", "auto"),
                     help="attention data path: the CUDA kernels (flash "
@@ -66,12 +60,8 @@ def main(argv=None):
 
     arch = get_reduced(args.arch) if args.reduced else get_arch(args.arch)
     run = RunConfig(param_dtype="float32", compute_dtype="float32",
-                    matmul_schedule=args.matmul_schedule,
                     attn_impl=args.attn_impl)
-    ctx = ParallelContext(mode=args.mode, data=args.data, depth=args.depth,
-                          rows=args.rows, cols=args.cols,
-                          matmul_schedule=run.matmul_schedule,
-                          attn_impl=run.attn_impl)
+    ctx = ParallelContext(attn_impl=run.attn_impl)
     model = build_model(arch.model, ctx, run, device=args.device, seed=0)
     engine = InferenceEngine(model, EngineConfig(
         n_slots=args.n_slots, block_size=args.block_size,

@@ -1,29 +1,17 @@
-"""Serve steps of the port: plain functions over the model and the pool.
+"""Serve steps of the port.
 
-Counterparts of ``repro.runtime.steps`` ``build_prefill_step``
+Counterpart of ``repro.runtime.steps``.  The reference builds jitted
+``shard_map`` steps over the mesh: ``build_prefill_step``
 (``with_lengths=True``), ``build_paged_decode_step`` and
-``build_paged_reshard``.  The reference builds jitted ``shard_map`` steps
-over the mesh; at one device PyTorch runs the model eagerly, so each step is
-a call.  Block ids are global ids, which at one KV group are also the local
-ids the model reads.
+``build_paged_reshard``.  At one device PyTorch runs the model eagerly, so
+the prefill and decode steps are the model's own ``prefill`` and
+``decode_paged``, which the engine calls directly; only the reshard, which
+is no model method, lives here.  Block ids are global ids, which at one KV
+group are also the local ids the model reads.
 """
 from __future__ import annotations
 
 import torch
-
-
-def prefill_step(model, tokens, lengths):
-    """Bucketed prefill: tokens [B, S] (right-padded), lengths [B] ->
-    (logits [B, v_pad] float32 at each request's last position,
-    cache {"k", "v": [L, B, S, Hkv, D]})."""
-    return model.prefill(tokens, lengths)
-
-
-def paged_decode_step(model, pool, tables, pos, ids):
-    """One decode step for every slot: tables [n_slots, max_blocks] int32,
-    pos [n_slots] int32, ids [n_slots, 1] -> logits [n_slots, v_pad]
-    float32.  The pool is updated in place."""
-    return model.decode_paged(pool, tables, ids, pos)
 
 
 @torch.no_grad()

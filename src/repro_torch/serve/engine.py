@@ -29,7 +29,7 @@ import torch
 from ..core.device import resolve_device
 from ..core.ops import Plan
 from ..kernels.ops import effective_attn_impl
-from ..runtime.steps import paged_decode_step, paged_reshard, prefill_step
+from ..runtime.steps import paged_reshard
 from .kv_cache import PagedCacheConfig, PagedKVCache
 from .sampling import SamplingParams, sample_tokens, slot_arrays
 from .scheduler import FAILED, RUNNING, WAITING, Request, Scheduler
@@ -248,8 +248,8 @@ class InferenceEngine:
                 lengths[j] = len(seq)
                 nb_req = self.cache.blocks_for(len(seq))
                 tables[j, :nb_req] = req.block_ids[:nb_req]
-            logits, pcache = prefill_step(self.model, self._tensor(tokens),
-                                          self._tensor(lengths))
+            logits, pcache = self.model.prefill(self._tensor(tokens),
+                                                self._tensor(lengths))
             paged_reshard(self.pool, pcache, self._tensor(tables))
             del pcache
             temps, ks, ps, seeds = slot_arrays([r.sampling for r in chunk]
@@ -294,9 +294,8 @@ class InferenceEngine:
             slot_blocks[s] = req.block_ids
             samplings[s] = req.sampling
         tables = self.cache.make_table(slot_blocks, groups)
-        logits = paged_decode_step(self.model, self.pool,
-                                   self._tensor(tables), self._tensor(pos),
-                                   self._tensor(ids))
+        logits = self.model.decode_paged(self.pool, self._tensor(tables),
+                                         self._tensor(ids), self._tensor(pos))
         self.stats.decode_steps += 1
         ok = self._finite_rows(logits)
         temps, ks, ps, seeds = slot_arrays(samplings)

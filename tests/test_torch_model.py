@@ -26,8 +26,7 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.convert import params_from_jax
 from repro_torch.core.api import ParallelContext
 from repro_torch.models.registry import build_model
-from repro_torch.runtime.steps import (paged_decode_step, paged_reshard,
-                                       prefill_step)
+from repro_torch.runtime.steps import paged_reshard
 
 ATOL = 5e-5
 B, S, BS, NB_POOL, STEPS = 2, 16, 4, 24, 3
@@ -65,16 +64,16 @@ def _port_run(arch, params_np, tokens, lengths, tables, dec_ids):
                     attn_impl="pallas")
     model = build_model(arch.model, ctx, run, device="cpu")
     params_from_jax(params_np, model)
-    logits, pcache = prefill_step(model, torch.from_numpy(tokens),
-                                  torch.from_numpy(lengths))
+    logits, pcache = model.prefill(torch.from_numpy(tokens),
+                                   torch.from_numpy(lengths))
     shape, dtype = model.paged_cache_shape(NB_POOL, BS)
     pool = {k: torch.zeros(shape, dtype=dtype) for k in ("k", "v")}
     paged_reshard(pool, pcache, torch.from_numpy(tables[:, :S // BS]))
     out = [logits.numpy()]
     for t in range(STEPS):
-        lg = paged_decode_step(model, pool, torch.from_numpy(tables),
-                               torch.from_numpy(lengths + t),
-                               torch.from_numpy(dec_ids[t]))
+        lg = model.decode_paged(pool, torch.from_numpy(tables),
+                                torch.from_numpy(dec_ids[t]),
+                                torch.from_numpy(lengths + t))
         out.append(lg.numpy())
     return out
 

@@ -123,6 +123,8 @@ def test_attn_impl_resolution():
 def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="fault_plan"):
         RunConfig(fault_plan="serve.step@1:drop_step")
+    with pytest.raises(TypeError):             # training knobs: not copied
+        RunConfig(lr=1e-3)
     cfg = get_reduced("yi-6b").model
     model = build_model(cfg, ParallelContext(),
                         RunConfig(param_dtype="float32",
