@@ -7,23 +7,35 @@ Phases, in order; any failed check exits non-zero and prints no result:
 1. card: the GPU's name and power limit (nvidia-smi), and the build of the
    CUDA kernels from src/repro_torch/csrc with nvcc for sm_90a;
 2. kernels: each kernel against its plain PyTorch version on the card
-   (flash forward at yi-6b and smollm-360m head shapes, Tq = Tk in
-   {16, 1000, 2048}, q_start 0 / None, window 0 / 256, a fully masked case,
-   bf16 and fp32; paged decode with random tables, mixed positions with
-   scratch slots, window 0 / 64, a non-uniform kv_map, block sizes 8 / 16);
+   (flash forward, and the flash backward's dQ and dK/dV passes, at yi-6b
+   and smollm-360m head shapes, Tq = Tk in {16, 1000, 2048}, q_start 0 /
+   None, window 0 / 256, a fully masked case with exact-zero outputs and
+   gradients, bf16 and fp32, and dK/dV launched twice giving the same
+   bits; paged decode with random tables, mixed positions with scratch
+   slots, window 0 / 64, a non-uniform kv_map, block sizes 8 / 16);
 3. model parity: yi-6b at full width in fp32 (TF32 off), one 1000-token
    prefill and 8 paged decode steps through the kernels, then the same
    inputs teacher-forced through the plain versions: logits agree;
-4. serve: yi-6b at full width in bf16 through InferenceEngine (8 slots,
+4. training parity: smollm-360m at full width and depth in fp32 (TF32
+   off), B = 2, T = 1024: the loss and every gradient leaf through the
+   kernels against the plain versions;
+5. serve: yi-6b at full width in bf16 through InferenceEngine (8 slots,
    block 16, 2048 blocks): 16 greedy requests of 128/512/1000/2000 prompt
    tokens and 32 new tokens each; the kernels' launch counters are zeroed
    just before and read just after, and must show both kernels ran;
-5. timings at the serve shapes: each kernel checked once more against its
-   plain version on the exact serve-shape inputs (flash at the 2048 bucket,
-   paged with a 256-entry table over the 2048-block pool), then kernel,
-   plain version and library call timed (CUDA events, median of 20 launches
-   with a cold L2), each beside the least time the card could take (bound);
-6. the last line: {"ok": true, "device": {...}}.
+6. train: smollm-360m at full width and depth, fp32 params, bf16 compute,
+   seq 2048 x batch 8, 10 steps through runtime/train_loop.train with the
+   launch counters zeroed just before: finite losses starting near
+   ln(vocab), no skipped step, 32 launches per step of each flash kernel;
+   step time, tokens/s, peak memory, model FLOPs share and a profile;
+7. timings at the serve and train shapes: each kernel checked once more
+   against its plain version on the exact inputs it times (flash at the
+   2048 bucket, paged with a 256-entry table over the 2048-block pool, the
+   backward passes and the forward at the train shape and at yi-6b's),
+   then kernel, plain
+   version and library call timed (CUDA events, median of 20 launches with
+   a cold L2), each beside the least time the card could take (bound);
+8. the last line: {"ok": true, "device": {...}}.
 
 It imports only repro_torch, torch, numpy and the standard library.
 Weights and inputs are random, from fixed seeds.
@@ -47,6 +59,8 @@ H100_BYTES_PER_S = 3.35e12   # HBM3 bandwidth (H100 SXM)
 ARCH = "yi-6b"
 SERVE_PROMPTS = (128, 512, 1000, 2000)
 SERVE_REQUESTS, SERVE_NEW = 16, 32
+TRAIN_ARCH = "smollm-360m"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2048, 8, 10
 
 
 class CheckFailed(Exception):
@@ -132,6 +146,99 @@ def _tols(dtype):
     return (1e-4 if dtype == torch.float32 else 1e-2), 1e-3
 
 
+def _bwd_tol(dtype):
+    # relative to the largest |gradient| of the case: fp32 differs only in
+    # summation order (sums of up to ~6k fp32 terms per entry, ~1e-6
+    # relative), bf16 in one rounding of each output (2^-8 relative at
+    # most; the arithmetic is fp32 on both sides)
+    return 1e-4 if dtype == torch.float32 else 1e-2
+
+
+def _bwd_inputs(gen, B, Hq, Hkv, D, T, dtype, **kw):
+    """(q, k, v, dout and the forward's lse and delta, the forward's out),
+    from the plain forward (so the backward is checked on its own)."""
+    from repro_torch.kernels.flash_attention import flash_fwd_plain
+    q = randn(gen, B, Hq, T, D, dtype=dtype)
+    k = randn(gen, B, Hkv, T, D, dtype=dtype)
+    v = randn(gen, B, Hkv, T, D, dtype=dtype)
+    dout = randn(gen, B, Hq, T, D, dtype=dtype)
+    out, lse = flash_fwd_plain(q, k, v, **kw)
+    delta = (dout.float() * out.float()).sum(-1)
+    return (q, k, v, dout, lse, delta), out
+
+
+def _bwd_check(args, dtype, what, **kw):
+    """dq, dk, dv of the kernels against the plain versions on ``args``;
+    returns (kernel grads, largest |kernel - plain| of dQ, of dK/dV)."""
+    from repro_torch.kernels.flash_attention import (flash_dkv,
+                                                     flash_dkv_plain,
+                                                     flash_dq,
+                                                     flash_dq_plain)
+    got = (flash_dq(*args, **kw), *flash_dkv(*args, **kw))
+    torch.cuda.synchronize()
+    want = (flash_dq_plain(*args, **kw), *flash_dkv_plain(*args, **kw))
+    torch.cuda.synchronize()
+    errs = []
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        e, scale = max_err(g, w), float(w.float().abs().max())
+        check(e <= _bwd_tol(dtype) * scale,
+              f"{what} {name}: err {e:.3g} vs max |grad| {scale:.3g}")
+        errs.append(e)
+    return got, errs[0], max(errs[1:])
+
+
+def phase_bwd_kernels():
+    """The flash backward's dQ and dK/dV kernels against their plain
+    versions over the forward phase's grid, the fully masked case and a
+    determinism check; returns the largest error of each."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    worst = {"flash_dq": 0.0, "flash_dkv": 0.0}
+    n = 0
+    for Hq, Hkv, D in ((32, 4, 128), (15, 5, 64)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for T in (16, 1000, 2048):
+                for q_start in (0, None):
+                    for window in (0, 256):
+                        kw = dict(causal=True, local_window=window,
+                                  q_start=q_start)
+                        args, _ = _bwd_inputs(gen, 1, Hq, Hkv, D, T, dtype,
+                                              **kw)
+                        _, e_dq, e_dkv = _bwd_check(
+                            args, dtype, f"flash bwd Hq={Hq} D={D} T={T} "
+                            f"q_start={q_start} window={window} {dtype}",
+                            **kw)
+                        worst["flash_dq"] = max(worst["flash_dq"], e_dq)
+                        worst["flash_dkv"] = max(worst["flash_dkv"], e_dkv)
+                        n += 1
+            # rows whose positions precede every key, and keys no row sees
+            T = 1000
+            kw = dict(causal=True, q_start=None,
+                      q_pos=torch.arange(T, device="cuda",
+                                         dtype=torch.int32) - 70)
+            args, _ = _bwd_inputs(gen, 1, Hq, Hkv, D, T, dtype, **kw)
+            (dq, dk, dv), e_dq, e_dkv = _bwd_check(
+                args, dtype, f"flash bwd masked Hq={Hq} {dtype}", **kw)
+            check(bool((dq[:, :, :70] == 0).all())
+                  and bool((dk[:, :, -70:] == 0).all())
+                  and bool((dv[:, :, -70:] == 0).all()),
+                  f"flash bwd fully masked rows/keys not exact zero "
+                  f"({dtype})")
+            worst["flash_dq"] = max(worst["flash_dq"], e_dq)
+            worst["flash_dkv"] = max(worst["flash_dkv"], e_dkv)
+            n += 1
+    # dK/dV has no atomics: two launches give the same bits
+    from repro_torch.kernels.flash_attention import flash_dkv
+    args, _ = _bwd_inputs(gen, 2, 15, 5, 64, 2048, torch.bfloat16)
+    a, b = flash_dkv(*args), flash_dkv(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(a, b)),
+          "flash_dkv is not deterministic run to run")
+    log(f"bwd kernel phase: {n} cases pass, dK/dV deterministic; max "
+        f"|kernel - plain| dq {worst['flash_dq']:.3g}, dkv "
+        f"{worst['flash_dkv']:.3g}")
+    return worst
+
+
 def phase_kernels():
     """Every kernel against its plain version; returns the largest output
     error of each over all cases."""
@@ -205,14 +312,16 @@ def _paged_case(gen, Hq, Hkv, D, bs, window, dtype):
     return max_err(out, ref)
 
 
-def _model(dtype, attn_impl):
+def _model(arch, param_dtype, compute_dtype, attn_impl):
+    """Full-width ``arch`` on the card with random weights from seed 0
+    (remat off: the train phases keep every activation)."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.core.api import ParallelContext
     from repro_torch.models.registry import build_model, get_arch
-    run = RunConfig(param_dtype=dtype, compute_dtype=dtype,
-                    attn_impl=attn_impl)
+    run = RunConfig(param_dtype=param_dtype, compute_dtype=compute_dtype,
+                    attn_impl=attn_impl, remat="none")
     ctx = ParallelContext(mode="tesseract", attn_impl=attn_impl)
-    return build_model(get_arch(ARCH).model, ctx, run, device="cuda", seed=0)
+    return build_model(get_arch(arch).model, ctx, run, device="cuda", seed=0)
 
 
 def phase_parity():
@@ -221,7 +330,7 @@ def phase_parity():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("parity: float32, TF32 off for matmul and cuDNN")
-    model = _model("float32", "pallas")
+    model = _model(ARCH, "float32", "float32", "pallas")
     L, bs, prompt, bucket, steps = model.cfg.num_layers, 16, 1000, 1024, 8
     rng = np.random.RandomState(2)
     tokens = np.zeros((1, bucket), np.int32)
@@ -268,12 +377,148 @@ def phase_parity():
     torch.cuda.empty_cache()
 
 
+def _train_batch(model, seq, batch, step=0):
+    from repro_torch.data.pipeline import SyntheticLMStream
+    stream = SyntheticLMStream(model.cfg.vocab_size, batch, seq, seed=0)
+    return {k: torch.from_numpy(v).cuda()
+            for k, v in stream.batch(step).items()}
+
+
+def phase_train_parity():
+    """Full-width fp32 training: the loss and every gradient leaf through
+    the kernels (flash forward, dQ, dK/dV) against the plain versions."""
+    from repro_torch.kernels import ops as kops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _model(TRAIN_ARCH, "float32", "float32", "pallas")
+    L = model.cfg.num_layers
+    batch = _train_batch(model, 1024, 2)
+    results = []
+    for impl in ("pallas", "jnp"):
+        model.ctx = model.ctx.replace(attn_impl=impl)
+        kops.reset_launches()
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        if impl == "pallas":
+            check(kops.LAUNCHES["flash_fwd"] == kops.LAUNCHES["flash_dq"]
+                  == kops.LAUNCHES["flash_dkv"] == L,
+                  f"train parity did not go through the kernels: "
+                  f"{kops.LAUNCHES}")
+        results.append((loss.item(),
+                        {n: p.grad.clone() for n, p in
+                         model.named_parameters()}))
+    (l_k, g_k), (l_p, g_p) = results
+    worst, worst_name = 0.0, ""
+    for name, gp in g_p.items():
+        rel = max_err(g_k[name], gp) / max(float(gp.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"train parity: {TRAIN_ARCH} L={L} fp32 B=2 T=1024: loss kernels "
+        f"{l_k:.6f} plain {l_p:.6f} (|diff| {abs(l_k - l_p):.2e}); largest "
+        f"leaf max|diff| / max|grad| {worst:.2e} ({worst_name})")
+    check(abs(l_k - l_p) <= 1e-4, f"train parity loss {l_k} vs {l_p}")
+    check(worst <= 1e-3, f"train parity grads: {worst_name} {worst:.3g}")
+    del model, results, g_k, g_p
+    torch.cuda.empty_cache()
+
+
+def phase_train():
+    """The train slice's main path: smollm-360m at full width and depth,
+    fp32 params and bf16 compute, through runtime/train_loop.train."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime.train_loop import train
+    model = _model(TRAIN_ARCH, "float32", "bfloat16", "auto")
+    cfg, L = model.cfg, model.cfg.num_layers
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    res = train(model, shape, steps=TRAIN_STEPS, seed=0, log_every=1)
+    torch.cuda.synchronize()
+    launches = dict(kops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(len(res.losses) == TRAIN_STEPS and all(np.isfinite(res.losses)),
+          f"train losses: {res.losses}")
+    check(abs(res.losses[0] - np.log(cfg.vocab_size)) < 0.5,
+          f"step 0 loss {res.losses[0]:.3f} not near ln(vocab) "
+          f"{np.log(cfg.vocab_size):.3f}")
+    check(res.nan_skips == 0, f"{res.nan_skips} steps skipped")
+    want = L * TRAIN_STEPS
+    check(launches["flash_fwd"] == launches["flash_dq"]
+          == launches["flash_dkv"] == want,
+          f"train launches {launches} != {L} x {TRAIN_STEPS} each")
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    p50 = float(np.median(res.step_times))
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2          # causal (q, k) pairs
+    # 6 N per token for the matmuls (N counts the head but not the
+    # embedding table, whose lookup multiplies nothing), and the
+    # attention's 4 D FLOPs per causal pair per q head forward, 8 D
+    # backward (dQ 4 D: dO.V^T and dS.K; dK/dV 4 D: dS^T.Q and P^T.dO;
+    # QK^T recomputed in both passes is not counted)
+    n_matmul = cfg.param_count() - cfg.vocab_size * cfg.d_model
+    flops = 6 * n_matmul * tokens \
+        + 12 * model.D * pairs * cfg.num_heads * TRAIN_BATCH * L
+    log(f"train: {TRAIN_ARCH} fp32 params bf16 compute L={L}, seq "
+        f"{TRAIN_SEQ} x batch {TRAIN_BATCH}, {TRAIN_STEPS} steps: losses "
+        f"{['%.4f' % x for x in res.losses]}")
+    log(f"train: step time p50 {p50 * 1e3:.1f} ms (first step "
+        f"{res.step_times[0] * 1e3:.1f} ms)")
+    log(f"train: tokens/s {tokens / p50:.1f}")
+    log(f"train: peak device memory {peak / 2**30:.2f} GiB")
+    log(f"train: model FLOPs per step {flops:.4g}, {flops / p50 / 1e12:.1f} "
+        f"TFLOP/s, {flops / p50 / H100_BF16_FLOPS:.4f} of the 989 TFLOP/s "
+        f"bf16 peak")
+    log(f"train launches: {launches}")
+    profile_train_step(model, shape)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_train_step(model, shape):
+    """Where a train step's time goes: one step after a warm-up step,
+    under torch.profiler; device time by kernel and the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime.steps import build_train_step
+    step = build_train_step(model, shape)
+    opt = adamw_init(list(model.parameters()),
+                     master=model.run.master_weights)
+    batch = _train_batch(model, shape.seq_len, shape.global_batch, step=100)
+    step(opt, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda kv: -kv[1])
+    busy = sum(ms for _, ms, _ in kernels)
+    log(json.dumps({
+        "profile": f"train step, {TRAIN_ARCH} seq {shape.seq_len} x batch "
+                   f"{shape.global_batch}, bf16 compute",
+        "wall_ms": wall_ms, "device_busy_ms": busy,
+        "device_idle_share": (1.0 - busy / wall_ms) if busy else None,
+        "top_kernels_ms_calls": [[k[:80], ms, n]
+                                 for k, ms, n in kernels[:12]]}))
+    del opt
+
+
 def phase_serve():
     """The main path: InferenceEngine at full width in bf16."""
     from repro_torch.kernels import ops as kops
     from repro_torch.serve import EngineConfig, InferenceEngine, SamplingParams
     from repro_torch.serve.scheduler import FINISHED
-    model = _model("bfloat16", "auto")
+    model = _model(ARCH, "bfloat16", "bfloat16", "auto")
     cfg = EngineConfig(n_slots=8, block_size=16, num_blocks=2048,
                        max_seq_len=4096)
     engine = InferenceEngine(model, cfg)
@@ -478,6 +723,90 @@ def phase_timings(launches, counts, worst):
     return rows
 
 
+def _time_bwd(gen, B, Hq, Hkv, T, D, worst):
+    """dQ, dK/dV, their plain versions and SDPA's backward at one causal
+    bf16 shape with q_start = 0 (as the train step calls them); the
+    forward, dQ and dK/dV kernels are each checked against their plain
+    versions on the timed inputs first."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_dkv,
+                                                     flash_dkv_plain,
+                                                     flash_dq,
+                                                     flash_dq_plain,
+                                                     flash_fwd)
+    bf = torch.bfloat16
+    kw = dict(causal=True, q_start=0)
+    args, r_out = _bwd_inputs(gen, B, Hq, Hkv, D, T, bf, **kw)
+    out, lse = flash_fwd(*args[:3], **kw)
+    torch.cuda.synchronize()
+    tol_out, tol_lse = _tols(bf)
+    e_out, e_lse = max_err(out, r_out), max_err(lse, args[4])
+    check(e_out <= tol_out and e_lse <= tol_lse,
+          f"flash fwd timed shape B={B} Hq={Hq} D={D}: out err {e_out:.3g} "
+          f"lse err {e_lse:.3g}")
+    worst["flash_fwd"] = max(worst["flash_fwd"], e_out)
+    del out, lse, r_out
+    _, e_dq, e_dkv = _bwd_check(args, bf, f"flash bwd timed shape B={B} "
+                                f"Hq={Hq} D={D}", **kw)
+    worst["flash_dq"] = max(worst["flash_dq"], e_dq)
+    worst["flash_dkv"] = max(worst["flash_dkv"], e_dkv)
+    t = {"flash_dq": time_ms(lambda: flash_dq(*args, **kw)),
+         "flash_dkv": time_ms(lambda: flash_dkv(*args, **kw))}
+    plain = {"flash_dq": time_ms(lambda: flash_dq_plain(*args, **kw)),
+             "flash_dkv": time_ms(lambda: flash_dkv_plain(*args, **kw))}
+    q, k, v, dout = (a.detach().clone().requires_grad_(i < 3)
+                     for i, a in enumerate(args[:4]))
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                         enable_gqa=True)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        out, (q, k, v), dout, retain_graph=True))
+    del out
+    pairs = T * (T + 1) // 2
+    io = 2 * (args[0].numel() + args[1].numel() + args[2].numel()
+              + args[3].numel()) + 4 * 2 * args[4].numel()
+    bounds = {   # inputs read once, outputs written once; causal pairs
+        "flash_dq": _bound(6 * D * pairs * Hq * B, io + 2 * q.numel()),
+        "flash_dkv": _bound(8 * D * pairs * Hq * B,
+                            io + 2 * 2 * k.numel())}
+    return t, plain, library_ms, bounds
+
+
+def phase_bwd_timings(launches, worst):
+    """Kernel / plain / library times of the backward passes at the train
+    phase's shape (smollm-360m) and at yi-6b's head shape."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
+    shapes = (("train", TRAIN_BATCH, 15, 5, TRAIN_SEQ, 64),
+              ("yi-6b", 1, 32, 4, 2048, 128))
+    for label, B, Hq, Hkv, T, D in shapes:
+        t, plain, library_ms, bounds = _time_bwd(gen, B, Hq, Hkv, T, D,
+                                                 worst)
+        for name in ("flash_dq", "flash_dkv"):
+            bound_ms, bound_by = bounds[name]
+            log(json.dumps({
+                "timing": name, "shape_of": label,
+                "shape": [B, Hq, Hkv, T, D], "dtype": "bfloat16",
+                "q_start": 0, "ms": t[name], "plain_ms": plain[name],
+                "library_ms": library_ms,
+                "library": "backward of scaled_dot_product_attention("
+                           "is_causal, enable_gqa): dQ, dK and dV in one "
+                           "call",
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "launches_per_train_step": launches[name] / TRAIN_STEPS}))
+            if label == "train":
+                rows.append(dict(
+                    name=name, route="cuda",
+                    source="src/repro_torch/csrc/flash_bwd.cu",
+                    replaces=("src/repro/kernels/flash_attention.py:287"
+                              if name == "flash_dq" else
+                              "src/repro/kernels/flash_attention.py:312"),
+                    launches=launches[name], max_abs_err=worst[name],
+                    ms=t[name], plain_ms=plain[name], bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=library_ms))
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -486,9 +815,15 @@ def main():
     try:
         card = phase_card()
         worst = phase_kernels()
+        worst.update(phase_bwd_kernels())
         phase_parity()
+        phase_train_parity()
         launches, counts = phase_serve()
-        rows = phase_timings(launches, counts, worst)
+        train_launches = phase_train()
+        # the backward timings check the forward at the train shape too,
+        # so they run before the forward's row is written
+        bwd_rows = phase_bwd_timings(train_launches, worst)
+        rows = phase_timings(launches, counts, worst) + bwd_rows
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -121,22 +121,43 @@ _DTYPES = ("float32", "bfloat16", "float16")
 
 @dataclass(frozen=True)
 class RunConfig:
-    """Run options of the serve slice.  The reference's training, pipeline,
-    sequence-sharding and multi-rank fields (optimizer, ZeRO, loss scaling,
-    remat, chunk sizes, schedules, ...) act on paths the port does not have
-    yet and come back with those slices; passing one is a TypeError rather
-    than a setting that silently does nothing."""
+    """Run options of the one-card serve and train slices, with the
+    reference's defaults.  The reference's fields that act only across
+    ranks (ZeRO, pipeline and sequence shards, matmul and attention
+    schedules, gradient compression), the optimizer choice (AdamW only
+    until LAMB is ported) and the attention chunk sizes of its jnp path
+    come back with the slices that use them (ROADMAP Queue A);
+    passing one is a TypeError rather than a setting that silently does
+    nothing."""
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    # Per-block activation checkpointing of the train loss: "none" keeps
+    # every activation, "full" recomputes each block in the backward
+    # (torch.utils.checkpoint, the reference's jax.checkpoint).
+    remat: str = "full"          # none | full  ("dots" is not ported)
+    loss_chunk: int = 512        # tokens per cross-entropy chunk
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    # Static loss scaling for low-precision compute: the loss is multiplied
+    # by loss_scale before the backward and gradients are unscaled before
+    # clipping and the optimizer.
+    loss_scale: float = 1.0
     # Attention data path ("jnp" | "pallas" | "auto"), the config surface
     # that launchers copy onto ParallelContext.attn_impl.  In the port
     # (kernels/ops.py): "pallas" runs the Hopper kernels, "jnp" their plain
     # PyTorch versions, "auto" the kernels on a CUDA device and the plain
     # versions on the CPU.
     attn_impl: str = "jnp"
+    # Gradient-accumulation microbatches per optimizer step (train loop
+    # default).
+    accum_steps: int = 1
     # Deterministic fault injection plan of the reference ("" = none); not
     # ported yet, so a non-empty plan is refused.
     fault_plan: str = ""
+    # Non-finite update skips tolerated per step before the train loop
+    # backs off loss_scale or raises (the reference's recovery ladder).
+    nan_skip_limit: int = 2
 
     def __post_init__(self):
         if self.param_dtype not in _DTYPES:
@@ -145,6 +166,21 @@ class RunConfig:
         if self.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {_DTYPES}, "
                              f"got {self.compute_dtype!r}")
+        if self.remat == "dots":
+            raise NotImplementedError(
+                "remat='dots' (save matmul outputs) is not supported by "
+                "repro_torch yet (ROADMAP Queue A, item A3)")
+        if self.remat not in ("none", "full"):
+            raise ValueError(f"remat must be 'none' or 'full', "
+                             f"got {self.remat!r}")
+        if not self.loss_scale > 0:
+            raise ValueError(f"loss_scale must be > 0, got {self.loss_scale}")
+        if self.loss_chunk < 1 or self.accum_steps < 1:
+            raise ValueError(f"loss_chunk and accum_steps must be >= 1, got "
+                             f"{self.loss_chunk}, {self.accum_steps}")
+        if self.nan_skip_limit < 0:
+            raise ValueError(f"nan_skip_limit must be >= 0, "
+                             f"got {self.nan_skip_limit}")
         if self.attn_impl not in ("jnp", "pallas", "auto"):
             raise ValueError(f"attn_impl must be 'jnp', 'pallas' or 'auto', "
                              f"got {self.attn_impl!r}")
@@ -154,6 +190,11 @@ class RunConfig:
             raise NotImplementedError(
                 "fault_plan is not supported by repro_torch yet "
                 "(ROADMAP Queue A, item A3: fault injection)")
+
+    @property
+    def master_weights(self) -> bool:
+        """fp32 master copies are kept whenever params are low-precision."""
+        return self.param_dtype != "float32"
 
 
 @dataclass(frozen=True)

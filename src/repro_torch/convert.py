@@ -1,10 +1,14 @@
-"""Carry parameters of the JAX package's ``DenseLM`` into the port's module.
+"""Carry parameters between the JAX package's ``DenseLM`` tree and the
+port's module.
 
 The reference's param pytree (``DenseLM.init``) is ``embed``, ``head``,
 ``ln_f`` (``ln_fb``) and ``blocks``, a dict of per-layer arrays stacked on a
 leading [L] axis.  Both packages keep weights in the [in, out] layout
 (``x @ w``), so loading is a slice per layer and no transpose.  The tree
-arrives as numpy arrays, so the two packages never share random bits.
+travels as numpy arrays, so the two packages never share random bits:
+``params_from_jax`` loads one into the model, ``params_to_numpy`` and
+``grads_to_numpy`` give the model's params and gradients back in the same
+layout (float32), so tests compare them leaf by leaf.
 """
 from __future__ import annotations
 
@@ -43,3 +47,31 @@ def params_from_jax(tree, model):
         for i, blk in enumerate(model.blocks):
             _load(getattr(blk, name), stacked[i], f"blocks.{name}[{i}]")
     return model
+
+
+def _tree(model, leaf):
+    """The reference's tree layout of ``leaf(param)`` over ``model``."""
+    tree = {n: leaf(p) for n, p in model.named_parameters(recurse=False)}
+    names = [n for n, _ in model.blocks[0].named_parameters()]
+    tree["blocks"] = {n: np.stack([leaf(getattr(blk, n))
+                                   for blk in model.blocks])
+                      for n in names}
+    return tree
+
+
+def _np32(t):
+    """A float32 numpy copy (never a view of the live tensor's storage)."""
+    return t.detach().float().cpu().numpy().copy()
+
+
+def params_to_numpy(model):
+    """The model's params as the reference's tree of float32 numpy arrays,
+    blocks stacked on [L]."""
+    return _tree(model, _np32)
+
+
+def grads_to_numpy(model):
+    """The params' ``.grad`` in the same layout (zeros where a param has
+    no gradient)."""
+    return _tree(model, lambda p: (_np32(p.grad) if p.grad is not None
+                                   else np.zeros(p.shape, np.float32)))

@@ -13,6 +13,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .api import ParallelContext, require_single_device
 
@@ -107,6 +108,50 @@ class TesseractOps:
         logits = torch.matmul(x[:, 0, :].float(), w_head.float().t())
         vmask = torch.arange(w_head.shape[0], device=x.device) < vocab_real
         return logits.masked_fill(~vmask[None, :], float("-inf"))
+
+    def ce_loss(self, x, w_head, labels, *, vocab_real: int,
+                loss_chunk: int = 512, label_mask=None):
+        """Chunked cross-entropy -> (loss_sum, count), fp32 scalars.
+
+        x: [B, S, h] final hidden states; w_head: [v_pad, h] in the compute
+        dtype (cast once per step by the caller); labels: [B, S] ids;
+        label_mask: optional [B, S] weights (default all ones).  Each chunk
+        of ``loss_chunk`` tokens (shrunk to divide B*S, as the reference
+        does) forms fp32 logits as the reference's fp32-accumulated head
+        einsum does, with the padded vocab at -inf, and is recomputed in the
+        backward (the reference's ``@jax.checkpoint``), so the [tokens,
+        vocab] fp32 logits never exist whole."""
+        E = x.shape[0] * x.shape[1]
+        xf = x.reshape(E, x.shape[-1])
+        lab = labels.reshape(E).long()
+        lm = (torch.ones(E, dtype=torch.float32, device=x.device)
+              if label_mask is None
+              else label_mask.reshape(E).to(torch.float32))
+        c = max(1, min(loss_chunk, E))
+        while E % c:
+            c -= 1
+        # fp32 products of the compute-dtype values: the reference's
+        # preferred_element_type=float32 accumulation, without rounding
+        w32 = w_head.float()
+        vmask = torch.arange(w_head.shape[0], device=x.device) < vocab_real
+        loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+        count = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, E, c):
+            ls, cs = checkpoint(_chunk_loss, xf[i:i + c], w32, lab[i:i + c],
+                                lm[i:i + c], vmask, use_reentrant=False)
+            loss_sum = loss_sum + ls
+            count = count + cs
+        return loss_sum, count
+
+
+def _chunk_loss(x_chunk, w32, labels, mask, vmask):
+    """One CE chunk: (sum of mask * (lse - logit[label]), sum of mask)."""
+    logits = torch.matmul(x_chunk.float(), w32.t())
+    logits = logits.masked_fill(~vmask[None, :], float("-inf"))
+    m = logits.amax(-1).detach()
+    lse = torch.log(torch.exp(logits - m[:, None]).sum(-1)) + m
+    ll = logits.gather(1, labels[:, None])[:, 0]
+    return ((lse - ll) * mask).sum(), mask.sum()
 
 
 def make_ops(ctx: ParallelContext, plan: Plan):

@@ -18,7 +18,8 @@ it launches its kernel, and nowhere else.
 """
 from __future__ import annotations
 
-LAUNCHES = {"flash_fwd": 0, "paged_attention": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+            "paged_attention": 0}
 
 
 def reset_launches() -> None:

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.flash_attention import flash_fwd, flash_fwd_plain
+from ..kernels.flash_attention import FlashAttention, flash_fwd_plain
 from ..kernels.ops import effective_attn_impl
 from ..kernels.paged_attention import paged_attention as paged_kernel
 from ..kernels.paged_attention import paged_attention_plain
@@ -51,20 +51,26 @@ def apply_rope(x, positions, theta: float = 1e4):
 
 def attention(q, k, v, *, q_pos, causal: bool = True, local_window: int = 0,
               softmax_scale=None, impl: str = "jnp", q_start=None):
-    """Prefill attention in the model layout: q [B, Tq, Hq, D], k/v
-    [B, Tk, Hkv, D] with KV rows at positions 0..Tk-1 -> [B, Tq, Hq, D].
+    """Prefill / training attention in the model layout: q [B, Tq, Hq, D],
+    k/v [B, Tk, Hkv, D] with KV rows at positions 0..Tk-1 -> [B, Tq, Hq, D].
 
-    ``q_start`` is the static q-row offset that lets the flash kernel skip
-    KV tiles; None (the seq-sharded Tesseract prefill, as in the reference)
-    walks every tile under the ``q_pos`` masks."""
+    Differentiable on both paths: "pallas" goes through ``FlashAttention``
+    (the flash forward kernel, and the dQ and dK/dV kernels in the
+    backward); "jnp" is autograd through ``flash_fwd_plain``, the
+    independent oracle.  ``q_start`` is the static q-row offset that lets
+    the kernels skip tiles; None (the seq-sharded Tesseract prefill, as in
+    the reference) walks every tile under the ``q_pos`` masks."""
     path = effective_attn_impl(impl, q.device)
-    fn = flash_fwd if path == "pallas" else flash_fwd_plain
-    out, _ = fn(q.transpose(1, 2).contiguous(),
-                k.transpose(1, 2).contiguous(),
-                v.transpose(1, 2).contiguous(), causal=causal,
-                local_window=local_window,
-                q_pos=None if q_start is not None else q_pos,
-                q_start=q_start, softmax_scale=softmax_scale)
+    args = (q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous())
+    q_pos = None if q_start is not None else q_pos
+    if path == "pallas":
+        out = FlashAttention.apply(*args, causal, local_window, q_pos,
+                                   q_start, softmax_scale)
+    else:
+        out, _ = flash_fwd_plain(*args, causal=causal,
+                                 local_window=local_window, q_pos=q_pos,
+                                 q_start=q_start, softmax_scale=softmax_scale)
     return out.transpose(1, 2)
 
 

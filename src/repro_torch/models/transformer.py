@@ -1,5 +1,5 @@
 """Dense decoder-only LM (llama/yi/smollm/nemotron family): PyTorch port of
-``repro.models.transformer.DenseLM``, serving path only.
+``repro.models.transformer.DenseLM``, serving and training paths.
 
 Covers GQA, GLU / squared-ReLU MLPs, rmsnorm/layernorm and RoPE at the
 one-device layout (no head or vocab padding arises there: q = 1).  Weights
@@ -9,13 +9,16 @@ is a Python loop over ``blocks`` in place of ``lax.scan``.
 
 Serving entry points: ``prefill`` (bucketed, right-padded prompts with true
 ``lengths``) and ``decode_paged`` (one token per slot against the paged
-pool, updated in place).  Training, the dense static decode loop and the
-chunked-prefill path are not ported yet (ROADMAP Queue A).
+pool, updated in place), both without autograd.  Training entry point:
+``loss`` (the mean next-token cross-entropy of a batch, differentiable in
+every parameter).  The dense static decode loop and the chunked-prefill
+path are not ported yet (ROADMAP Queue A).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig, RunConfig, round_up
 from ..core.api import ParallelContext, require_single_device
@@ -26,8 +29,7 @@ WINIT_SCALE = 0.02     # reference common.winit
 
 
 def _param(shape, dtype, device):
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 class DenseBlock(nn.Module):
@@ -139,15 +141,16 @@ class DenseLM(nn.Module):
         return ops.head_logits(x, self._w(self.head),
                                vocab_real=self.cfg.vocab_size)
 
-    # ------------------------------------------------------------ prefill
-    def _block_prefill(self, blk, x, ops, qpos):
+    # ------------------------------------------------- prefill and train
+    def _block(self, blk, x, ops, qpos):
         """Attention + MLP sublayers (residuals included); also returns this
         layer's K/V for the cache."""
         h = self._norm(ops, x, blk.ln1, getattr(blk, "ln1b", None))
         q, k, v = self._qkv(blk, h, ops, qpos)
         # the Tesseract prefill plan is seq-sharded even at one device, so,
         # as in the reference, no static q offset: the flash kernel walks
-        # every KV tile under the causal mask
+        # every KV tile under the causal mask.  The train plan is not, so
+        # q_start = 0 turns the kernels' causal tile skipping on.
         q_start = None if ops.plan.seq_sharded else 0
         out = cm.attention(q, k, v, q_pos=qpos, causal=True,
                            local_window=self.cfg.local_window,
@@ -167,12 +170,36 @@ class DenseLM(nn.Module):
         qpos = ops.positions(x.shape[1], device=x.device)
         ks, vs = [], []
         for blk in self.blocks:
-            x, (k, v) = self._block_prefill(blk, x, ops, qpos)
+            x, (k, v) = self._block(blk, x, ops, qpos)
             ks.append(k)
             vs.append(v)
         x = self._final(ops, x)
         return (self._logits(ops, last_token_at(x, lengths)),
                 {"k": torch.stack(ks), "v": torch.stack(vs)})
+
+    def loss(self, batch):
+        """Mean next-token cross-entropy of ``batch`` = {"tokens", "labels":
+        [B, S] int, optional "mask": [B, S]}: embed, the blocks at
+        positions 0..S-1, the final norm and the chunked CE over the
+        compute-dtype head, loss_sum / max(count, 1).  With remat="full"
+        each block is recomputed in the backward."""
+        ops = make_ops(self.ctx, Plan.for_shape("train"))
+        x = ops.embed(batch["tokens"], self.embed).to(self.cdt)
+        qpos = ops.positions(x.shape[1], device=x.device)
+        def block(blk, x):
+            return self._block(blk, x, ops, qpos)[0]
+
+        for blk in self.blocks:
+            if self.run.remat == "full":
+                x = checkpoint(block, blk, x, use_reentrant=False)
+            else:
+                x = block(blk, x)
+        x = self._final(ops, x)
+        loss_sum, count = ops.ce_loss(
+            x, self.head.to(self.cdt), batch["labels"],
+            vocab_real=self.cfg.vocab_size, loss_chunk=self.run.loss_chunk,
+            label_mask=batch.get("mask"))
+        return loss_sum / count.clamp(min=1.0)
 
     # ------------------------------------------------------------- decode
     def paged_cache_shape(self, num_blocks: int, block_size: int):

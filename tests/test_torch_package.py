@@ -13,7 +13,9 @@ import torch
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.api import ParallelContext
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.flash_attention import flash_fwd, flash_fwd_plain
+from repro_torch.kernels.flash_attention import (flash_dkv, flash_dkv_plain,
+                                                 flash_dq, flash_dq_plain,
+                                                 flash_fwd, flash_fwd_plain)
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_plain)
 from repro_torch.models.registry import build_model, get_reduced
@@ -45,7 +47,8 @@ def test_port_imports_neither_jax_nor_reference():
 def test_engine_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
-            "import repro_torch.serve.engine, repro_torch.launch.serve; "
+            "import repro_torch.serve.engine, repro_torch.launch.serve, "
+            "repro_torch.runtime.train_loop, repro_torch.launch.train; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
@@ -77,6 +80,9 @@ def test_entry_points_default_to_cuda():
     model = build_model(cfg, ctx, run, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InferenceEngine(model, EngineConfig())
+    from repro_torch.launch.train import main as train_main
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(["--arch", "yi-6b", "--reduced", "--steps", "1"])
 
 
 def test_multi_device_layouts_raise():
@@ -107,7 +113,17 @@ def test_wrappers_take_plain_version_for_cpu_tensors():
     torch.testing.assert_close(
         paged_attention(qd, pk, pv, table, pos, kv_map),
         paged_attention_plain(qd, pk, pv, table, pos, kv_map), rtol=0, atol=0)
-    assert kops.LAUNCHES == {"flash_fwd": 0, "paged_attention": 0}
+    dout, lse, delta = t(1, 4, 24, 64), want[1], t(1, 4, 24)
+    torch.testing.assert_close(
+        flash_dq(q, k, v, dout, lse, delta, q_start=None),
+        flash_dq_plain(q, k, v, dout, lse, delta, q_start=None),
+        rtol=0, atol=0)
+    for a, b in zip(flash_dkv(q, k, v, dout, lse, delta, local_window=8),
+                    flash_dkv_plain(q, k, v, dout, lse, delta,
+                                    local_window=8)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert kops.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+                             "paged_attention": 0}
 
 
 def test_attn_impl_resolution():
@@ -123,8 +139,12 @@ def test_attn_impl_resolution():
 def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="fault_plan"):
         RunConfig(fault_plan="serve.step@1:drop_step")
-    with pytest.raises(TypeError):             # training knobs: not copied
-        RunConfig(lr=1e-3)
+    with pytest.raises(TypeError):             # multi-rank knobs: not copied
+        RunConfig(zero1=True)
+    with pytest.raises(TypeError):             # AdamW only; LAMB comes in A3
+        RunConfig(optimizer="lamb")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RunConfig(remat="dots")
     cfg = get_reduced("yi-6b").model
     model = build_model(cfg, ParallelContext(),
                         RunConfig(param_dtype="float32",
@@ -135,6 +155,11 @@ def test_unported_features_raise():
             InferenceEngine(model, EngineConfig(**knob), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_reduced("mamba2-1.3b")
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.runtime.train_loop import train
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train(model, ShapeSpec("t", 8, 2, "train"), steps=1,
+              ckpt_dir="ckpt")
 
 
 def test_serve_launcher_runs_on_cpu(capsys):
