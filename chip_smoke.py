@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failed check exits non-zero and prints no result:
+Phases, in order (each prints its wall time); any failed check exits
+non-zero and prints no result:
 
 1. card: the GPU's name and power limit (nvidia-smi), and the build of the
    CUDA kernels from src/repro_torch/csrc with nvcc for sm_90a;
@@ -12,30 +13,42 @@ Phases, in order; any failed check exits non-zero and prints no result:
    None, window 0 / 256, a fully masked case with exact-zero outputs and
    gradients, bf16 and fp32, and dK/dV launched twice giving the same
    bits; paged decode with random tables, mixed positions with scratch
-   slots, window 0 / 64, a non-uniform kv_map, block sizes 8 / 16);
+   slots, window 0 / 64, a non-uniform kv_map, block sizes 8 / 16; the
+   SSD intra-chunk pass at (H, P, N) = (64, 64, 128) and (4, 16, 16),
+   Q in {256, 250, 143, 16, 1}, B in {1, 2}, nc in {1, 8}, mild and steep
+   decay, and launched twice giving the same bits);
 3. model parity: yi-6b at full width in fp32 (TF32 off), one 1000-token
    prefill and 8 paged decode steps through the kernels, then the same
    inputs teacher-forced through the plain versions: logits agree;
 4. training parity: smollm-360m at full width and depth in fp32 (TF32
    off), B = 2, T = 1024: the loss and every gradient leaf through the
    kernels against the plain versions;
-5. serve: yi-6b at full width in bf16 through InferenceEngine (8 slots,
+5. ssm parity: mamba2-1.3b at full width and depth in fp32 (TF32 off),
+   B = 2, T = 1000 (the SSD kernel at Q = 250) and 8 greedy decode steps,
+   then the same teacher-forced through the plain version: ids identical,
+   every cache leaf within 1e-4 of its max;
+6. serve: yi-6b at full width in bf16 through InferenceEngine (8 slots,
    block 16, 2048 blocks): 16 greedy requests of 128/512/1000/2000 prompt
    tokens and 32 new tokens each; the kernels' launch counters are zeroed
    just before and read just after, and must show both kernels ran;
-6. train: smollm-360m at full width and depth, fp32 params, bf16 compute,
+7. train: smollm-360m at full width and depth, fp32 params, bf16 compute,
    seq 2048 x batch 8, 10 steps through runtime/train_loop.train with the
    launch counters zeroed just before: finite losses starting near
    ln(vocab), no skipped step, 32 launches per step of each flash kernel;
    step time, tokens/s, peak memory, model FLOPs share and a profile;
-7. timings at the serve and train shapes: each kernel checked once more
+8. ssm serve: mamba2-1.3b at full width and depth in bf16, one prefill of
+   8 prompts x 2048 tokens (Q = 256, nc = 8) and 32 greedy decode steps
+   with the launch counters zeroed just before: exactly 48 SSD launches,
+   in-vocab ids, finite states; prefill time, decode step p50/p99,
+   tokens/s, peak memory and a profiled prefill;
+9. timings at the serve and train shapes: each kernel checked once more
    against its plain version on the exact inputs it times (flash at the
    2048 bucket, paged with a 256-entry table over the 2048-block pool, the
-   backward passes and the forward at the train shape and at yi-6b's),
-   then kernel, plain
-   version and library call timed (CUDA events, median of 20 launches with
-   a cold L2), each beside the least time the card could take (bound);
-8. the last line: {"ok": true, "device": {...}}.
+   backward passes and the forward at the train shape and at yi-6b's, the
+   SSD pass at the ssm serve shape), then kernel, plain version and
+   library call timed (CUDA events, median of 20 launches with a cold
+   L2), each beside the least time the card could take (bound);
+10. the last line: {"ok": true, "device": {...}}.
 
 It imports only repro_torch, torch, numpy and the standard library.
 Weights and inputs are random, from fixed seeds.
@@ -61,6 +74,11 @@ SERVE_PROMPTS = (128, 512, 1000, 2000)
 SERVE_REQUESTS, SERVE_NEW = 16, 32
 TRAIN_ARCH = "smollm-360m"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2048, 8, 10
+H100_TF32_FLOPS = 495e12     # dense TF32 tensor-core peak (fp32 inputs)
+H100_FP32_FLOPS = 67e12      # fp32 peak outside the tensor cores
+SSM_ARCH = "mamba2-1.3b"
+SSM_PROMPT, SSM_BATCH, SSM_NEW = 2048, 8, 32
+SSD_TOL = 1e-4               # |kernel - plain| <= SSD_TOL * max |plain|
 
 
 class CheckFailed(Exception):
@@ -121,7 +139,8 @@ def phase_card():
     report = build.library_path().with_suffix(".log")
     if report.exists():
         for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line or "==" in line:
+            if any(k in line for k in ("registers", "spill", "==",
+                                       "entry function")):
                 log("  ptxas:", line.strip())
     return card
 
@@ -611,6 +630,249 @@ def profile_decode(engine, rng, steps=8):
     engine.run()
 
 
+def _ssd_inputs(gen, B, nc, Q, H, P, N, steep):
+    """x, log_a (about -0.01, or about -5 where the decay underflows far
+    from the diagonal), B, C on the card, float32."""
+    scale = 5.0 if steep else 0.01
+    la = -scale * (0.5 + torch.rand(B, nc, Q, H, generator=gen,
+                                    device="cuda"))
+    return (randn(gen, B, nc, Q, H, P), la.contiguous(),
+            randn(gen, B, nc, Q, N), randn(gen, B, nc, Q, N))
+
+
+def _ssd_check(args, what):
+    """The SSD kernel against its plain version on ``args``; returns (the
+    kernel's outputs, the larger of its Y and S_c errors)."""
+    from repro_torch.kernels.ssd import ssd_intra, ssd_intra_plain
+    got = ssd_intra(*args)
+    torch.cuda.synchronize()
+    want = ssd_intra_plain(*args)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, g, w in zip(("Y", "S_c"), got, want):
+        e, scale = max_err(g, w), float(w.abs().max())
+        check(np.isfinite(e) and e <= SSD_TOL * scale,
+              f"{what} {name}: err {e:.3g} vs max |plain| {scale:.3g}")
+        worst = max(worst, e)
+    return got, worst
+
+
+def phase_ssd_kernels():
+    """The SSD intra-chunk kernel against its plain version: the full width
+    (H, P, N) = (64, 64, 128) and (4, 16, 16), Q in {256, 250, 143, 16, 1}
+    (the chunks the model's shrink-to-divide rule gives), B in {1, 2},
+    nc in {1, 8}, mild and steep decay; then two launches on the same
+    inputs must give the same bits.  Returns the largest error."""
+    from repro_torch.kernels.ssd import ssd_intra
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst, n = 0.0, 0
+    for H, P, N in ((64, 64, 128), (4, 16, 16)):
+        for Q in (256, 250, 143, 16, 1):
+            for B in (1, 2):
+                for nc in (1, 8):
+                    for steep in (False, True):
+                        args = _ssd_inputs(gen, B, nc, Q, H, P, N, steep)
+                        _, e = _ssd_check(args, f"ssd H={H} P={P} N={N} "
+                                          f"Q={Q} B={B} nc={nc} "
+                                          f"steep={steep}")
+                        worst = max(worst, e)
+                        n += 1
+    args = _ssd_inputs(gen, 2, 8, 250, 64, 64, 128, False)
+    a, b = ssd_intra(*args), ssd_intra(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(a, b)),
+          "ssd_intra is not deterministic run to run")
+    log(f"ssd kernel phase: {n} cases pass (tolerance {SSD_TOL} x max "
+        f"|plain|), two launches give the same bits; max |kernel - plain| "
+        f"{worst:.3g}")
+    return {"ssd_intra": worst}
+
+
+def _ssm_model(param_dtype, compute_dtype, use_pallas):
+    """Full-width, full-depth mamba2-1.3b on the card, weights from seed 0."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.models.registry import build_model, get_arch
+    run = RunConfig(param_dtype=param_dtype, compute_dtype=compute_dtype,
+                    use_pallas=use_pallas)
+    return build_model(get_arch(SSM_ARCH).model, ParallelContext(), run,
+                       device="cuda", seed=0)
+
+
+def phase_ssm_parity():
+    """Full-width fp32 (TF32 off): a B = 2, T = 1000 prefill (the kernel at
+    Q = 250 in every layer) and 8 greedy decode steps through the SSD
+    kernel, then the same weights and tokens through the plain version,
+    teacher-forced with the kernel run's ids: ids identical, every cache
+    leaf within 1e-4 of its largest magnitude."""
+    import dataclasses
+    from repro_torch.kernels import ops as kops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _ssm_model("float32", "float32", True)
+    L, B, T, steps = model.cfg.num_layers, 2, 1000, 8
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tokens = torch.randint(0, model.cfg.vocab_size, (B, T), generator=gen,
+                           device="cuda")
+
+    def run(feed):
+        ids, cache = model.prefill(tokens)
+        out_ids, caches = [ids], [cache]
+        for t in range(steps):
+            ids, cache = model.decode(cache, feed[t] if feed else ids)
+            out_ids.append(ids)
+            caches.append(cache)
+        torch.cuda.synchronize()
+        return out_ids, caches
+
+    kops.reset_launches()
+    k_ids, k_caches = run(None)
+    check(kops.LAUNCHES["ssd_intra"] == L,
+          f"ssm parity did not go through the kernel: {kops.LAUNCHES}")
+    model.run = dataclasses.replace(model.run, use_pallas=False)
+    p_ids, p_caches = run(k_ids)
+    check(kops.LAUNCHES["ssd_intra"] == L, "the plain run launched the kernel")
+    same = [bool(torch.equal(a, b)) for a, b in zip(k_ids, p_ids)]
+    worst, worst_at = 0.0, ""
+    for step, (kc, pc) in enumerate(zip(k_caches, p_caches)):
+        for name in pc:
+            rel = max_err(kc[name], pc[name]) / max(
+                float(pc[name].abs().max()), 1e-30)
+            if not rel <= worst:
+                worst, worst_at = rel, f"step {step} {name}"
+    log(f"ssm parity: {SSM_ARCH} L={L} fp32 B={B} T={T} (Q=250) + {steps} "
+        f"decode steps: ids identical per step {same}; largest cache leaf "
+        f"max|kernel - plain| / max|plain| {worst:.3g} ({worst_at})")
+    check(all(same), f"ssm parity ids differ: {same}")
+    check(worst <= 1e-4, f"ssm parity cache: {worst_at} {worst:.3g}")
+    del model, k_caches, p_caches
+    torch.cuda.empty_cache()
+
+
+def phase_ssm_serve():
+    """The ssm slice's main path: mamba2-1.3b at full width and depth in
+    bf16, one prefill of 8 prompts x 2048 tokens through the SSD kernel
+    and 32 greedy decode steps, with the launch counters zeroed just
+    before.  Returns (launches, the prefill's inputs for the profile)."""
+    from repro_torch.kernels import ops as kops
+    model = _ssm_model("bfloat16", "bfloat16", True)
+    cfg, L = model.cfg, model.cfg.num_layers
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT),
+                           generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    ids, cache = model.prefill(tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out, steps_s = [ids], []
+    for _ in range(SSM_NEW):
+        t1 = time.perf_counter()
+        ids, cache = model.decode(cache, ids)
+        torch.cuda.synchronize()
+        steps_s.append(time.perf_counter() - t1)
+        out.append(ids)
+    wall = time.perf_counter() - t0
+    launches = dict(kops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ids_all = torch.cat(out, 1)
+    check(launches["ssd_intra"] == L,
+          f"ssd_intra launched {launches['ssd_intra']} times, want {L} "
+          f"(once per layer of the one prefill, never in decode)")
+    check(bool(((ids_all >= 0) & (ids_all < cfg.vocab_size)).all()),
+          "out-of-vocab token")
+    check(all(bool(torch.isfinite(v).all()) for v in cache.values()),
+          "non-finite cache")
+    n_out = ids_all.numel()
+    p50, p99 = (float(np.percentile(steps_s, q)) * 1e3 for q in (50, 99))
+    log(f"ssm serve: {SSM_ARCH} bf16 L={L}, {SSM_BATCH} prompts x "
+        f"{SSM_PROMPT} tokens, {SSM_NEW} decode steps")
+    log(f"ssm serve: prefill (time to first token of the batch) "
+        f"{prefill_s * 1e3:.1f} ms; decode step p50 {p50:.2f} ms p99 "
+        f"{p99:.2f} ms; output tokens/s {n_out / wall:.1f} ({n_out} tokens "
+        f"in {wall:.3f} s, prefill included); peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"ssm serve launches: {launches}")
+    profile_prefill(model, tokens)
+    del model, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_prefill(model, tokens):
+    """Where an ssm prefill's time goes: one prefill after a warm-up
+    prefill, under torch.profiler; device time by kernel, the SSD kernel's
+    share and the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    model.prefill(tokens)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0),
+                     key=lambda kv: -kv[1])
+    busy = sum(ms for _, ms, _ in kernels)
+    ssd = sum(ms for k, ms, _ in kernels if "ssd_intra" in k)
+    log(json.dumps({
+        "profile": f"ssm prefill, {SSM_ARCH} bf16, {tokens.shape[0]} x "
+                   f"{tokens.shape[1]} tokens",
+        "wall_ms": wall_ms, "device_busy_ms": busy,
+        "device_idle_share": (1.0 - busy / wall_ms) if busy else None,
+        "ssd_intra_ms": ssd,
+        "ssd_intra_share_of_busy": ssd / busy if busy else None,
+        "top_kernels_ms_calls": [[k[:80], ms, n]
+                                 for k, ms, n in kernels[:15]]}))
+
+
+def phase_ssd_timings(launches, worst):
+    """The SSD kernel's row at the serve shape (B 8, nc 8, Q 256, H 64,
+    P 64, N 128, fp32): checked against its plain version on the timed
+    inputs, then kernel and plain version timed; no single PyTorch call
+    computes this function (library_ms null)."""
+    from repro_torch.kernels.ssd import ssd_intra, ssd_intra_plain
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    B, nc, Q, H, P, N = SSM_BATCH, SSM_PROMPT // 256, 256, 64, 64, 128
+    la = -(0.3 + 0.7 * torch.rand(B, nc, Q, H, generator=gen,
+                                  device="cuda"))   # dt*A at init: ~ -0.7
+    args = (randn(gen, B, nc, Q, H, P), la.contiguous(),
+            randn(gen, B, nc, Q, N), randn(gen, B, nc, Q, N))
+    _, e = _ssd_check(args, "ssd at the serve shape")
+    worst["ssd_intra"] = max(worst["ssd_intra"], e)
+    ms = time_ms(lambda: ssd_intra(*args))
+    plain_ms = time_ms(lambda: ssd_intra_plain(*args))
+    # the work these inputs need: the causal half of the Q x Q products
+    # (scores once per chunk, Y per head) and the chunk-end states
+    pairs = Q * (Q + 1) // 2
+    flops = B * nc * (2 * pairs * N + H * (2 * pairs * P + 2 * Q * P * N))
+    nbytes = 4 * (sum(a.numel() for a in args) + B * nc * Q * H * P
+                  + B * nc * H * P * N)
+    t_ops, t_bytes = flops / H100_TF32_FLOPS, nbytes / H100_BYTES_PER_S
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    log(json.dumps({"timing": "ssd_intra", "shape": [B, nc, Q, H, P, N],
+                    "dtype": "float32", "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": None, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+                    "fp32_cuda_core_ms": flops / H100_FP32_FLOPS * 1e3,
+                    "launches_per_prefill": launches["ssd_intra"],
+                    "tflops": flops / ms / 1e9}))
+    return [dict(name="ssd_intra", route="cuda",
+                 source="src/repro_torch/csrc/ssd.cu",
+                 replaces="src/repro/kernels/ssd.py:24",
+                 launches=launches["ssd_intra"],
+                 max_abs_err=worst["ssd_intra"], ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)]
+
+
 def _bound(flops, nbytes):
     t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -812,18 +1074,29 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    def phase(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
     try:
-        card = phase_card()
-        worst = phase_kernels()
-        worst.update(phase_bwd_kernels())
-        phase_parity()
-        phase_train_parity()
-        launches, counts = phase_serve()
-        train_launches = phase_train()
+        card = phase(phase_card)
+        worst = phase(phase_kernels)
+        worst.update(phase(phase_bwd_kernels))
+        worst.update(phase(phase_ssd_kernels))
+        phase(phase_parity)
+        phase(phase_train_parity)
+        phase(phase_ssm_parity)
+        launches, counts = phase(phase_serve)
+        train_launches = phase(phase_train)
+        ssm_launches = phase(phase_ssm_serve)
         # the backward timings check the forward at the train shape too,
         # so they run before the forward's row is written
-        bwd_rows = phase_bwd_timings(train_launches, worst)
-        rows = phase_timings(launches, counts, worst) + bwd_rows
+        bwd_rows = phase(phase_bwd_timings, train_launches, worst)
+        rows = (phase(phase_timings, launches, counts, worst) + bwd_rows
+                + phase(phase_ssd_timings, ssm_launches, worst))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -2,9 +2,10 @@
 
 The PyTorch port's own copy of ``repro.configs.base`` (the port imports
 nothing of the JAX package), so a config reads the same in both packages.
-One file per dense architecture lives next to this module; each exports
-``CONFIG: ArchConfig`` (full published config) and ``reduced() -> ArchConfig``
-(a tiny same-family config for CPU tests).
+One file per ported architecture (the dense ones and mamba2 of the ssm
+family) lives next to this module; each exports ``CONFIG: ArchConfig``
+(full published config) and ``reduced() -> ArchConfig`` (a tiny
+same-family config for CPU tests).
 """
 from __future__ import annotations
 
@@ -149,6 +150,10 @@ class RunConfig:
     # PyTorch versions, "auto" the kernels on a CUDA device and the plain
     # versions on the CPU.
     attn_impl: str = "jnp"
+    # The ssm mixer's SSD intra-chunk pass: True runs kernels/ssd.py's
+    # wrapper (the Hopper kernel for a CUDA tensor, its plain version for a
+    # CPU tensor), False the plain version (the reference's einsum path).
+    use_pallas: bool = False
     # Gradient-accumulation microbatches per optimizer step (train loop
     # default).
     accum_steps: int = 1

@@ -1,10 +1,12 @@
-"""Carry parameters between the JAX package's ``DenseLM`` tree and the
-port's module.
+"""Carry parameters between the JAX package's param trees and the port's
+modules (``DenseLM`` and ``MambaLM``).
 
-The reference's param pytree (``DenseLM.init``) is ``embed``, ``head``,
-``ln_f`` (``ln_fb``) and ``blocks``, a dict of per-layer arrays stacked on a
-leading [L] axis.  Both packages keep weights in the [in, out] layout
-(``x @ w``), so loading is a slice per layer and no transpose.  The tree
+The reference's param pytree (``DenseLM.init``, ``MambaLM.init``) is
+``embed``, ``head``, ``ln_f`` (``ln_fb``) and ``blocks``, a dict of
+per-layer arrays stacked on a leading [L] axis; the port's modules hold the
+same names (top-level params, and ``blocks[i]``'s params).  Both packages
+keep weights in the [in, out] layout (``x @ w``), so loading is a slice
+per layer and no transpose.  The tree
 travels as numpy arrays, so the two packages never share random bits:
 ``params_from_jax`` loads one into the model, ``params_to_numpy`` and
 ``grads_to_numpy`` give the model's params and gradients back in the same
@@ -28,7 +30,7 @@ def _load(param, arr, name):
 @torch.no_grad()
 def params_from_jax(tree, model):
     """Load ``tree`` (the reference's params as numpy arrays) into ``model``
-    (a repro_torch DenseLM) in place and return the model."""
+    (a repro_torch DenseLM or MambaLM) in place and return the model."""
     top = {k: v for k, v in tree.items() if k != "blocks"}
     want = {n for n, _ in model.named_parameters(recurse=False)}
     if set(top) != want:

@@ -74,6 +74,9 @@ class TesseractOps:
 
     linear_up = linear
     linear_down = linear
+    # [.., F] x [F, G] -> [.., G] replicated over col: the reference psums
+    # the col shards' partial products, which at one device is the product
+    linear_to_replicated = linear
 
     def embed(self, ids, table):
         """ids [B, S] -> rows of ``table`` [v_pad, h]; ids outside the table
@@ -108,6 +111,14 @@ class TesseractOps:
         logits = torch.matmul(x[:, 0, :].float(), w_head.float().t())
         vmask = torch.arange(w_head.shape[0], device=x.device) < vocab_real
         return logits.masked_fill(~vmask[None, :], float("-inf"))
+
+    def head_sample(self, x, w_head, *, vocab_real: int):
+        """Greedy next-token ids [B] int32 from x [B, 1, h]: the argmax of
+        ``head_logits`` (padded vocab at -inf), ties to the smallest index
+        as the reference's distributed argmax (torch.argmax returns the
+        first maximum)."""
+        logits = self.head_logits(x, w_head, vocab_real=vocab_real)
+        return logits.argmax(-1).to(torch.int32)
 
     def ce_loss(self, x, w_head, labels, *, vocab_real: int,
                 loss_chunk: int = 512, label_mask=None):
@@ -152,6 +163,13 @@ def _chunk_loss(x_chunk, w32, labels, mask, vmask):
     lse = torch.log(torch.exp(logits - m[:, None]).sum(-1)) + m
     ll = logits.gather(1, labels[:, None])[:, 0]
     return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def ops_last_token(x):
+    """[B, S, f] -> [B, 1, f]: the last token.  At one device the single
+    sequence shard holds it, so the reference's gather over the
+    sequence-sharding axes is the identity."""
+    return x[:, -1:]
 
 
 def make_ops(ctx: ParallelContext, plan: Plan):

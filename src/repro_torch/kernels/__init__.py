@@ -5,3 +5,5 @@
 #                     dK/dV passes, training), replaces the Pallas _fwd_kernel,
 #                     _dq_kernel and _dkv_kernel
 #   paged_attention — paged decode attention, replaces the Pallas _kernel
+#   ssd             — Mamba2 SSD intra-chunk Y and chunk-end states (ssm
+#                     prefill), replaces the Pallas ssd.py _kernel

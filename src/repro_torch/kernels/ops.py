@@ -13,13 +13,16 @@ values, so a config reads the same in both packages (counterpart of
     "auto"   — the kernels when the tensors are on a CUDA device, the plain
                versions on the CPU
 
+The ssm mixer's SSD kernel is chosen by ``RunConfig.use_pallas``, the
+reference's knob for it (``models/ssm.py``).
+
 ``LAUNCHES`` counts kernel launches by name: each wrapper adds one where
 it launches its kernel, and nowhere else.
 """
 from __future__ import annotations
 
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-            "paged_attention": 0}
+            "paged_attention": 0, "ssd_intra": 0}
 
 
 def reset_launches() -> None:

@@ -1,7 +1,7 @@
 """Model registry: arch id -> config module, family -> model class.
 
-Only the dense family is ported; the other families of the JAX package
-raise (ROADMAP Queue A, item A3)."""
+The dense family (``DenseLM``) and the ssm family (``MambaLM``) are ported;
+the other families of the JAX package raise (ROADMAP Queue A, item A3)."""
 from __future__ import annotations
 
 import importlib
@@ -16,6 +16,7 @@ ARCH_MODULES = {
     "nemotron-4-340b": "nemotron_4_340b",
     "smollm-360m": "smollm_360m",
     "llama3-405b": "llama3_405b",
+    "mamba2-1.3b": "mamba2_13b",
     "yi-6b": "yi_6b",
 }
 
@@ -23,7 +24,7 @@ ARCH_MODULES = {
 def _module(name: str):
     if name not in ARCH_MODULES:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet; dense archs: "
+            f"arch {name!r} is not ported yet; ported archs: "
             f"{sorted(ARCH_MODULES)} (ROADMAP Queue A, item A3)")
     return importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[name]}")
 
@@ -40,11 +41,14 @@ def build_model(cfg: ModelConfig, ctx: ParallelContext, run: RunConfig, *,
                 device="cuda", seed: int = 0):
     """Model with random weights from ``torch.Generator(device).manual_seed
     (seed)``, on ``device`` (the card unless the caller asks for the CPU)."""
-    if cfg.family != "dense":
+    if cfg.family == "dense":
+        from .transformer import DenseLM as cls
+    elif cfg.family == "ssm":
+        from .ssm import MambaLM as cls
+    else:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue A, "
             f"item A3)")
-    from .transformer import DenseLM
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return DenseLM(cfg, ctx, run, device=dev, generator=gen)
+    return cls(cfg, ctx, run, device=dev, generator=gen)

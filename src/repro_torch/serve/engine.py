@@ -109,6 +109,10 @@ class InferenceEngine:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine runs "
                              f"on {self.device}")
+        if not hasattr(model, "decode_paged"):
+            raise NotImplementedError(
+                f"{type(model).__name__} has no paged decode path: serve it "
+                f"through its prefill/decode steps")
         for knob in ("prefix_cache", "prefill_chunk", "spec_k"):
             if getattr(cfg, knob):
                 raise NotImplementedError(

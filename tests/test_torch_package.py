@@ -48,7 +48,8 @@ def test_engine_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
             "import repro_torch.serve.engine, repro_torch.launch.serve, "
-            "repro_torch.runtime.train_loop, repro_torch.launch.train; "
+            "repro_torch.runtime.train_loop, repro_torch.launch.train, "
+            "repro_torch.models.ssm, repro_torch.kernels.ssd; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
@@ -123,7 +124,7 @@ def test_wrappers_take_plain_version_for_cpu_tensors():
                                     local_window=8)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert kops.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-                             "paged_attention": 0}
+                             "paged_attention": 0, "ssd_intra": 0}
 
 
 def test_attn_impl_resolution():
@@ -154,7 +155,7 @@ def test_unported_features_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceEngine(model, EngineConfig(**knob), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_reduced("mamba2-1.3b")
+        get_reduced("recurrentgemma-9b")
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.runtime.train_loop import train
     with pytest.raises(NotImplementedError, match="ROADMAP"):
