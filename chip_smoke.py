@@ -17,38 +17,58 @@ non-zero and prints no result:
    SSD intra-chunk pass at (H, P, N) = (64, 64, 128) and (4, 16, 16),
    Q in {256, 250, 143, 16, 1}, B in {1, 2}, nc in {1, 8}, mild and steep
    decay, and launched twice giving the same bits);
-3. model parity: yi-6b at full width in fp32 (TF32 off), one 1000-token
+3. summa kernels: the SUMMA contraction (kernel #1, tesseract_mm) and one
+   ring step (kernel #2, tesseract_mm_stream) against their plain versions
+   at yi-6b's per-rank projection shapes at q = 2 and at one rank (prefill
+   and decode rows), at smollm-360m's train projections and mamba2-1.3b's
+   prefill and decode projections (partial 128-wide G tiles), ragged E in
+   {1, 3, 1000}, T in {1, 2, 4}, F and G not multiples of 8, bf16 and
+   fp32: a repeat launch gives the same bits, the bf16 epilogue gives the
+   fp32 C rounded, T launches of #2 agree with #1;
+4. model parity: yi-6b at full width in fp32 (TF32 off), one 1000-token
    prefill and 8 paged decode steps through the kernels, then the same
    inputs teacher-forced through the plain versions: logits agree;
-4. training parity: smollm-360m at full width and depth in fp32 (TF32
+5. ring: the same request with matmul_schedule="ring" (kernel #2 in every
+   projection) against "fused" (kernel #1): ids identical, logits within
+   1e-4 of their max, only the schedule's kernel launched;
+6. training parity: smollm-360m at full width and depth in fp32 (TF32
    off), B = 2, T = 1024: the loss and every gradient leaf through the
    kernels against the plain versions;
-5. ssm parity: mamba2-1.3b at full width and depth in fp32 (TF32 off),
+7. ssm parity: mamba2-1.3b at full width and depth in fp32 (TF32 off),
    B = 2, T = 1000 (the SSD kernel at Q = 250) and 8 greedy decode steps,
    then the same teacher-forced through the plain version: ids identical,
    every cache leaf within 1e-4 of its max;
-6. serve: yi-6b at full width in bf16 through InferenceEngine (8 slots,
+8. serve: yi-6b at full width in bf16 through InferenceEngine (8 slots,
    block 16, 2048 blocks): 16 greedy requests of 128/512/1000/2000 prompt
    tokens and 32 new tokens each; the kernels' launch counters are zeroed
-   just before and read just after, and must show both kernels ran;
-7. train: smollm-360m at full width and depth, fp32 params, bf16 compute,
+   just before and read just after, and must show the kernels ran (7
+   tesseract_mm launches per layer of every prefill and decode step);
+9. train: smollm-360m at full width and depth, fp32 params, bf16 compute,
    seq 2048 x batch 8, 10 steps through runtime/train_loop.train with the
    launch counters zeroed just before: finite losses starting near
-   ln(vocab), no skipped step, 32 launches per step of each flash kernel;
-   step time, tokens/s, peak memory, model FLOPs share and a profile;
-8. ssm serve: mamba2-1.3b at full width and depth in bf16, one prefill of
+   ln(vocab), no skipped step, 32 launches per step of each flash kernel
+   and 7 x 32 of tesseract_mm; step time, tokens/s, peak memory, model
+   FLOPs share and a profile;
+10. ssm serve: mamba2-1.3b at full width and depth in bf16, one prefill of
    8 prompts x 2048 tokens (Q = 256, nc = 8) and 32 greedy decode steps
-   with the launch counters zeroed just before: exactly 48 SSD launches,
-   in-vocab ids, finite states; prefill time, decode step p50/p99,
-   tokens/s, peak memory and a profiled prefill;
-9. timings at the serve and train shapes: each kernel checked once more
+   with the launch counters zeroed just before: exactly 48 SSD launches
+   and 4 x 48 tesseract_mm launches per prefill and decode step, in-vocab
+   ids, finite states; prefill time, decode step p50/p99, tokens/s, peak
+   memory and a profiled prefill;
+11. timings at the serve and train shapes: each kernel checked once more
    against its plain version on the exact inputs it times (flash at the
    2048 bucket, paged with a 256-entry table over the 2048-block pool, the
    backward passes and the forward at the train shape and at yi-6b's, the
-   SSD pass at the ssm serve shape), then kernel, plain version and
+   SSD pass at the ssm serve shape, the SUMMA kernels at yi-6b's q = 2
+   per-rank and one-rank gate/up shapes), then kernel, plain version and
    library call timed (CUDA events, median of 20 launches with a cold
-   L2), each beside the least time the card could take (bound);
-10. the last line: {"ok": true, "device": {...}}.
+   L2), each beside the least time the card could take (bound); and the
+   host time of one projection (the SUMMA wrapper against torch.matmul);
+12. the last line: {"ok": true, "device": {...}}.
+
+The four-card mesh is not a phase (this script needs one card): it runs
+under torchrun, ``python -m repro_torch.testing.mdchecks`` and
+``python -m repro_torch.launch.serve`` (README.md).
 
 It imports only repro_torch, torch, numpy and the standard library.
 Weights and inputs are random, from fixed seeds.
@@ -79,6 +99,13 @@ H100_FP32_FLOPS = 67e12      # fp32 peak outside the tensor cores
 SSM_ARCH = "mamba2-1.3b"
 SSM_PROMPT, SSM_BATCH, SSM_NEW = 2048, 8, 32
 SSD_TOL = 1e-4               # |kernel - plain| <= SSD_TOL * max |plain|
+# |SUMMA kernel - plain| <= MM_TOL * max |plain|: the kernels sum up to
+# T * F = 22016 products in fp32 in their tiles' order, the plain versions
+# in float64 (a bf16 input is exact in both)
+MM_TOL = 1e-4
+DENSE_MM = 7                 # SUMMA contractions per dense layer: wq, wk,
+                             # wv, wo, gate, up, down
+SSM_MM = 4                   # per ssm layer: w_z, w_x, w_dt, w_out
 
 
 class CheckFailed(Exception):
@@ -343,14 +370,12 @@ def _model(arch, param_dtype, compute_dtype, attn_impl):
     return build_model(get_arch(arch).model, ctx, run, device="cuda", seed=0)
 
 
-def phase_parity():
-    """Full-width fp32: kernels vs plain versions through the model."""
+def _prefill_decode(model, prompt, steps, feed=None):
+    """One ``prompt``-token request through ``model.prefill`` (the next
+    bucket of 1024) and ``steps`` paged decode steps, greedy or fed the ids
+    ``feed``.  Returns (logits per step, the ids fed)."""
     from repro_torch.runtime.steps import paged_reshard
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log("parity: float32, TF32 off for matmul and cuDNN")
-    model = _model(ARCH, "float32", "float32", "pallas")
-    L, bs, prompt, bucket, steps = model.cfg.num_layers, 16, 1000, 1024, 8
+    bs, bucket = 16, -(-prompt // 1024) * 1024
     rng = np.random.RandomState(2)
     tokens = np.zeros((1, bucket), np.int32)
     tokens[0, :prompt] = rng.randint(0, model.cfg.vocab_size, prompt)
@@ -358,33 +383,38 @@ def phase_parity():
     table = torch.arange(1, n_blocks, dtype=torch.int32,
                          device="cuda")[None]
     lengths = torch.tensor([prompt], dtype=torch.int32, device="cuda")
-    toks = torch.from_numpy(tokens).cuda()
+    shape, dt = model.paged_cache_shape(n_blocks, bs)
+    pool = {k: torch.zeros(shape, dtype=dt, device="cuda")
+            for k in ("k", "v")}
+    logits, pcache = model.prefill(torch.from_numpy(tokens).cuda(), lengths)
+    paged_reshard(pool, pcache, table[:, :bucket // bs])
+    out, ids = [logits], []
+    for t in range(steps):
+        nxt = feed[t] if feed else int(out[-1].argmax(-1))
+        ids.append(nxt)
+        ids_t = torch.tensor([[nxt]], dtype=torch.int32, device="cuda")
+        pos = torch.tensor([prompt + t], dtype=torch.int32, device="cuda")
+        out.append(model.decode_paged(pool, table, ids_t, pos))
+    torch.cuda.synchronize()
+    return out, ids
 
-    def run(feed):
-        shape, dt = model.paged_cache_shape(n_blocks, bs)
-        pool = {k: torch.zeros(shape, dtype=dt, device="cuda")
-                for k in ("k", "v")}
-        logits, pcache = model.prefill(toks, lengths)
-        paged_reshard(pool, pcache, table[:, :bucket // bs])
-        out, ids = [logits], []
-        for t in range(steps):
-            nxt = feed[t] if feed else int(out[-1].argmax(-1))
-            ids.append(nxt)
-            ids_t = torch.tensor([[nxt]], dtype=torch.int32, device="cuda")
-            pos = torch.tensor([prompt + t], dtype=torch.int32,
-                               device="cuda")
-            out.append(model.decode_paged(pool, table, ids_t, pos))
-        torch.cuda.synchronize()
-        return out, ids
 
+def phase_parity():
+    """Full-width fp32: kernels vs plain versions through the model."""
     from repro_torch.kernels import ops as kops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("parity: float32, TF32 off for matmul and cuDNN")
+    model = _model(ARCH, "float32", "float32", "pallas")
+    L, prompt, steps = model.cfg.num_layers, 1000, 8
     kops.reset_launches()
-    kern, ids = run(None)
+    kern, ids = _prefill_decode(model, prompt, steps)
     check(kops.LAUNCHES["flash_fwd"] == L
-          and kops.LAUNCHES["paged_attention"] == L * steps,
+          and kops.LAUNCHES["paged_attention"] == L * steps
+          and kops.LAUNCHES["tesseract_mm"] == DENSE_MM * L * (1 + steps),
           f"parity run did not go through the kernels: {kops.LAUNCHES}")
     model.ctx = model.ctx.replace(attn_impl="jnp")
-    plain, _ = run(ids)
+    plain, _ = _prefill_decode(model, prompt, steps, feed=ids)
     errs = [max_err(a, b) for a, b in zip(kern, plain)]
     scale = max(float(x.abs().max()) for x in plain)
     log(f"parity: {ARCH} L={L} fp32, prompt {prompt} + {steps} decode steps;"
@@ -394,6 +424,41 @@ def phase_parity():
           f"parity logits differ: {errs}")
     del model, kern, plain
     torch.cuda.empty_cache()
+
+
+def phase_summa_ring():
+    """yi-6b at full width in fp32 (TF32 off): one 1000-token prefill and 8
+    greedy paged decode steps with matmul_schedule="ring" (kernel #2 in
+    every projection) against the same with "fused" (kernel #1): ids
+    identical, logits within 1e-4 of their max, and only the schedule's
+    kernel launched.  Returns the ring run's launches."""
+    from repro_torch.kernels import ops as kops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _model(ARCH, "float32", "float32", "pallas")
+    L, prompt, steps = model.cfg.num_layers, 1000, 8
+    n = DENSE_MM * L * (1 + steps)
+    runs = {}
+    for sched in ("fused", "ring"):
+        model.ctx = model.ctx.replace(matmul_schedule=sched)
+        kops.reset_launches()
+        runs[sched] = _prefill_decode(model, prompt, steps)
+        launches = dict(kops.LAUNCHES)
+        want = (n, 0) if sched == "fused" else (0, n)
+        got = (launches["tesseract_mm"], launches["tesseract_mm_stream"])
+        check(got == want, f"{sched} run launched (#1, #2) = {got}, want "
+                           f"{want}")
+    (fused, f_ids), (ring, r_ids) = runs["fused"], runs["ring"]
+    scale = max(float(x.abs().max()) for x in fused)
+    err = max(max_err(a, b) for a, b in zip(ring, fused))
+    log(f"summa ring: {ARCH} L={L} fp32, prompt {prompt} + {steps} decode "
+        f"steps: ids identical {r_ids == f_ids}; max |ring - fused| "
+        f"{err:.3g} of max |logit| {scale:.3g}; ring launches {launches}")
+    check(r_ids == f_ids, f"ring ids {r_ids} != fused ids {f_ids}")
+    check(err <= 1e-4 * scale, f"ring logits differ by {err:.3g}")
+    del model, runs, fused, ring
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _train_batch(model, seq, batch, step=0):
@@ -422,7 +487,8 @@ def phase_train_parity():
         torch.cuda.synchronize()
         if impl == "pallas":
             check(kops.LAUNCHES["flash_fwd"] == kops.LAUNCHES["flash_dq"]
-                  == kops.LAUNCHES["flash_dkv"] == L,
+                  == kops.LAUNCHES["flash_dkv"] == L
+                  and kops.LAUNCHES["tesseract_mm"] == DENSE_MM * L,
                   f"train parity did not go through the kernels: "
                   f"{kops.LAUNCHES}")
         results.append((loss.item(),
@@ -469,6 +535,10 @@ def phase_train():
     check(launches["flash_fwd"] == launches["flash_dq"]
           == launches["flash_dkv"] == want,
           f"train launches {launches} != {L} x {TRAIN_STEPS} each")
+    check(launches["tesseract_mm"] == DENSE_MM * want
+          and launches["tesseract_mm_stream"] == 0,
+          f"train: tesseract_mm launched {launches['tesseract_mm']} times, "
+          f"want {DENSE_MM} x {L} x {TRAIN_STEPS} (one forward a step)")
     tokens = TRAIN_SEQ * TRAIN_BATCH
     p50 = float(np.median(res.step_times))
     pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2          # causal (q, k) pairs
@@ -575,6 +645,12 @@ def phase_serve():
     check(launches["paged_attention"] == s.decode_steps * L,
           f"paged launches {launches['paged_attention']} != decode steps "
           f"{s.decode_steps} x {L}")
+    check(launches["tesseract_mm"]
+          == DENSE_MM * L * (s.prefills + s.decode_steps)
+          and launches["tesseract_mm_stream"] == 0,
+          f"tesseract_mm launches {launches['tesseract_mm']} != {DENSE_MM} "
+          f"x {L} x (prefills {s.prefills} + decode steps "
+          f"{s.decode_steps})")
     ttft, itl = s.ttft_percentiles(), s.itl_percentiles()
     log(f"serve: {ARCH} bf16 L={L}, {SERVE_REQUESTS} requests x "
         f"{SERVE_NEW} new tokens, prompts {SERVE_PROMPTS}: {s.steps} steps, "
@@ -688,6 +764,218 @@ def phase_ssd_kernels():
     return {"ssd_intra": worst}
 
 
+def _mm_inputs(gen, T, E, F, G, dtype):
+    """a [T, E, F] and b [T, F, G] (scaled so entries of C are ~1)."""
+    return (randn(gen, T, E, F, dtype=dtype),
+            (randn(gen, T, F, G) / F ** 0.5).to(dtype))
+
+
+def _mm_check(a, b, what):
+    """#1 against its plain version on (a, b), a repeat launch of #1, #1
+    with a bf16 epilogue (bf16 inputs) against #1's fp32 C rounded, T
+    launches of #2 against #1, and #2 against its plain version on a random
+    accumulator.  Returns (errors of #1 and #2, #2 x T bit-equal to #1)."""
+    from repro_torch.kernels.tesseract_mm import (tesseract_mm,
+                                                  tesseract_mm_plain,
+                                                  tesseract_mm_stream,
+                                                  tesseract_mm_stream_plain)
+    c = tesseract_mm(a, b)
+    again = tesseract_mm(a, b)
+    low = tesseract_mm(a, b, out_dtype=a.dtype)
+    acc = torch.zeros_like(c)
+    for t in range(a.shape[0]):
+        tesseract_mm_stream(a[t], b[t], acc)
+    c0 = torch.randn_like(c)
+    step = tesseract_mm_stream(a[0], b[0], c0.clone())
+    torch.cuda.synchronize()
+    ref = tesseract_mm_plain(a, b)
+    ref_step = tesseract_mm_stream_plain(a[0], b[0], c0)
+    scale, scale_step = float(ref.abs().max()), float(ref_step.abs().max())
+    e1, e_acc, e2 = (max_err(c, ref), max_err(acc, c),
+                     max_err(step, ref_step))
+    check(e1 <= MM_TOL * scale, f"tesseract_mm {what}: err {e1:.3g} vs max "
+                                f"|plain| {scale:.3g}")
+    check(torch.equal(c, again), f"tesseract_mm {what}: a repeat launch "
+                                 f"gave other bits")
+    check(low.dtype == a.dtype and torch.equal(low, c.to(a.dtype)),
+          f"tesseract_mm {what}: the {a.dtype} epilogue differs from the "
+          f"fp32 C rounded")
+    check(e_acc <= MM_TOL * scale, f"tesseract_mm_stream x T {what}: "
+                                   f"differs from #1 by {e_acc:.3g}")
+    check(e2 <= MM_TOL * scale_step, f"tesseract_mm_stream {what}: err "
+                                     f"{e2:.3g} vs max {scale_step:.3g}")
+    return e1, e2, bool(torch.equal(acc, c))
+
+
+def _path_mm_shapes():
+    """(T, E, F, G) of the SUMMA contractions of the one-card paths other
+    than the dense serve's: smollm-360m's train forward (E = seq x batch;
+    wq/wo, wk/wv, gate/up, down) and its fp32 parity batch (E 2 x 1024),
+    and mamba2-1.3b's projections (w_z/w_x, w_dt, w_out) at the serve
+    phase's prefill and decode rows and the fp32 parity phase's (B 2 x T
+    1000, decode B 2).  Their G of 960, 320 and 64 end in a partial 128-wide
+    tile, which yi-6b's widths never do."""
+    from repro_torch.models.registry import get_arch
+    sm, mb = get_arch(TRAIN_ARCH).model, get_arch(SSM_ARCH).model
+    h, qd = sm.d_model, sm.num_heads * sm.resolved_head_dim
+    kvd = sm.num_kv_heads * sm.resolved_head_dim
+    train = {(h, qd), (h, kvd), (qd, h), (h, sm.d_ff), (sm.d_ff, h)}
+    di = mb.ssm_expand * mb.d_model
+    ssm = {(mb.d_model, di), (mb.d_model, di // mb.ssm_head_dim),
+           (di, mb.d_model)}
+    return ([(1, E, F, G) for E in (TRAIN_SEQ * TRAIN_BATCH, 2 * 1024)
+             for F, G in sorted(train)]
+            + [(1, E, F, G)
+               for E in (SSM_BATCH * SSM_PROMPT, SSM_BATCH, 2 * 1000, 2)
+               for F, G in sorted(ssm)])
+
+
+def phase_summa_kernels():
+    """Kernels #1 and #2 against their plain versions: yi-6b's per-rank
+    projection shapes at q = 2 (T 2; E 1024 and 4; F x G of wq/wo, wk/wv,
+    gate/up, down) and at one rank (T 1; E 2048 and 8), the train and ssm
+    paths' shapes (``_path_mm_shapes``), ragged E in {1, 3, 1000} at T in
+    {1, 2, 4}, F x G = 100 x 60 (element-wise tile loads), bf16 and fp32;
+    a repeat launch gives the same bits, the bf16 epilogue gives the fp32
+    C's bits rounded, and T launches of #2 agree with #1.  Returns the
+    largest errors."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cases = [(2, E, F, G) for E in (1024, 4)
+             for F, G in ((2048, 2048), (2048, 256), (2048, 5504),
+                          (5504, 2048))]
+    cases += [(1, E, F, G) for E in (2048, 8)
+              for F, G in ((4096, 4096), (4096, 512), (4096, 11008),
+                           (11008, 4096))]
+    cases += _path_mm_shapes()
+    cases += [(T, E, 2048, 256) for T in (1, 2, 4) for E in (1, 3, 1000)]
+    # F and G not multiples of 8: the tiles load element by element
+    cases += [(2, 5, 100, 60), (1, 200, 100, 60)]
+    worst = {"tesseract_mm": 0.0, "tesseract_mm_stream": 0.0}
+    bitwise = True
+    for dtype in (torch.bfloat16, torch.float32):
+        for T, E, F, G in cases:
+            a, b = _mm_inputs(gen, T, E, F, G, dtype)
+            e1, e2, same = _mm_check(a, b, f"T={T} E={E} F={F} G={G} "
+                                           f"{dtype}")
+            worst["tesseract_mm"] = max(worst["tesseract_mm"], e1)
+            worst["tesseract_mm_stream"] = max(worst["tesseract_mm_stream"],
+                                               e2)
+            bitwise &= same
+            del a, b
+    torch.cuda.empty_cache()
+    log(f"summa kernel phase: {2 * len(cases)} cases pass (tolerance "
+        f"{MM_TOL} x max |plain|), repeat launches bit-identical, bf16 "
+        f"epilogue = fp32 C rounded, #2 x T "
+        f"{'bit-identical to' if bitwise else 'within tolerance of'} #1; max "
+        f"|kernel - plain| #1 {worst['tesseract_mm']:.3g}, #2 "
+        f"{worst['tesseract_mm_stream']:.3g}")
+    return worst
+
+
+def _host_us_per_projection(calls=2000):
+    """Host time of one projection at one rank: ``tesseract_matmul`` (the
+    SUMMA wrapper and kernel #1's launch) against ``torch.matmul``, each
+    issued ``calls`` times back to back on decode-shaped [8, 1, 256] x
+    [256, 256] bf16 operands, whose few microseconds of device time leave
+    the host's issue rate as the wall time per call."""
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.core.mesh import Mesh
+    from repro_torch.core.summa import tesseract_matmul
+    ctx = ParallelContext()
+    mesh = Mesh(ctx)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    x = randn(gen, 8, 1, 256, dtype=torch.bfloat16)
+    w = randn(gen, 256, 256, dtype=torch.bfloat16)
+    us = {}
+    for name, fn in (("tesseract_matmul",
+                      lambda: tesseract_matmul(ctx, mesh, x, w)),
+                     ("torch.matmul", lambda: torch.matmul(x, w))):
+        with torch.no_grad():
+            for _ in range(100):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us[name] = 1e6 * (time.perf_counter() - t0) / calls
+    log(f"host per projection (one rank, [8, 1, 256] x [256, 256] bf16, "
+        f"{calls} calls): tesseract_matmul {us['tesseract_matmul']:.2f} us, "
+        f"torch.matmul {us['torch.matmul']:.2f} us")
+
+
+def phase_summa_timings(launches, ring_launches, worst):
+    """Kernel / plain / library times of #1 and #2 in bf16 at the q = 2
+    per-rank gate/up shape (T 2, E 1024, F 2048, G 5504) and the one-rank
+    one (T 1, E 2048, F 4096, G 11008), each checked once more on the timed
+    inputs, and at the decode rows of the same projections (E 4 and 8);
+    the kernels line carries the one-rank prefill shape (the last), the
+    serve phase's launches for #1 and the ring phase's for #2.  #1 is timed
+    as the fused schedule launches it, its C rounded to bf16 in the
+    epilogue, and its library call is one bf16 ``torch.einsum`` (fp32
+    accumulation, bf16 C); #2 adds a bf16 product into an fp32
+    accumulator, and its library call is ``torch.addmm(c, a, b,
+    out_dtype=torch.float32)`` (a new C: the same bytes, not in place).
+    Then the host time of one projection."""
+    from repro_torch.kernels.tesseract_mm import (tesseract_mm,
+                                                  tesseract_mm_plain,
+                                                  tesseract_mm_stream,
+                                                  tesseract_mm_stream_plain)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {}
+    for label, T, E, F, G in (("q=2 per-rank decode gate/up", 2, 4, 2048,
+                               5504),
+                              ("one-rank decode gate/up", 1, 8, 4096, 11008),
+                              ("q=2 per-rank gate/up", 2, 1024, 2048, 5504),
+                              ("one-rank gate/up", 1, 2048, 4096, 11008)):
+        a, b = _mm_inputs(gen, T, E, F, G, bf16)
+        e1, e2, _ = _mm_check(a, b, f"timed {label}")
+        worst["tesseract_mm"] = max(worst["tesseract_mm"], e1)
+        worst["tesseract_mm_stream"] = max(worst["tesseract_mm_stream"], e2)
+        acc = torch.zeros(E, G, dtype=f32, device="cuda")
+        a0, b0 = a[0], b[0]
+        t = {"tesseract_mm": (
+                 time_ms(lambda: tesseract_mm(a, b, out_dtype=bf16)),
+                 time_ms(lambda: tesseract_mm_plain(a, b, out_dtype=bf16)),
+                 time_ms(lambda: torch.einsum("tef,tfg->eg", a, b))),
+             "tesseract_mm_stream": (
+                 time_ms(lambda: tesseract_mm_stream(a0, b0, acc)),
+                 time_ms(lambda: tesseract_mm_stream_plain(a0, b0, acc)),
+                 time_ms(lambda: torch.addmm(acc, a0, b0, out_dtype=f32)))}
+        work = {"tesseract_mm": (2 * T * E * F * G,
+                                 2 * (a.numel() + b.numel()) + 2 * E * G),
+                "tesseract_mm_stream": (2 * E * F * G,
+                                        2 * (E * F + F * G) + 8 * E * G)}
+        library = {"tesseract_mm": "torch.einsum('tef,tfg->eg') in bf16",
+                   "tesseract_mm_stream":
+                       "torch.addmm(c, a, b, out_dtype=torch.float32)"}
+        for name, (ms, plain_ms, library_ms) in t.items():
+            flops, nbytes = work[name]
+            bound_ms, bound_by = _bound(flops, nbytes)
+            log(json.dumps({
+                "timing": name, "shape_of": label,
+                "shape": [T if name == "tesseract_mm" else 1, E, F, G],
+                "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "library": library[name],
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "tflops": flops / ms / 1e9}))
+            rows[name] = dict(
+                name=name, route="cuda",
+                source="src/repro_torch/csrc/tesseract_mm.cu",
+                replaces=("src/repro/kernels/tesseract_mm.py:47"
+                          if name == "tesseract_mm" else
+                          "src/repro/kernels/tesseract_mm.py:113"),
+                launches=(launches if name == "tesseract_mm"
+                          else ring_launches)[name],
+                max_abs_err=worst[name], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        del a, b, acc, a0, b0
+        torch.cuda.empty_cache()
+    _host_us_per_projection()
+    return [rows["tesseract_mm"], rows["tesseract_mm_stream"]]
+
+
 def _ssm_model(param_dtype, compute_dtype, use_pallas):
     """Full-width, full-depth mamba2-1.3b on the card, weights from seed 0."""
     from repro_torch.configs.base import RunConfig
@@ -727,8 +1015,9 @@ def phase_ssm_parity():
 
     kops.reset_launches()
     k_ids, k_caches = run(None)
-    check(kops.LAUNCHES["ssd_intra"] == L,
-          f"ssm parity did not go through the kernel: {kops.LAUNCHES}")
+    check(kops.LAUNCHES["ssd_intra"] == L
+          and kops.LAUNCHES["tesseract_mm"] == SSM_MM * L * (1 + steps),
+          f"ssm parity did not go through the kernels: {kops.LAUNCHES}")
     model.run = dataclasses.replace(model.run, use_pallas=False)
     p_ids, p_caches = run(k_ids)
     check(kops.LAUNCHES["ssd_intra"] == L, "the plain run launched the kernel")
@@ -781,6 +1070,10 @@ def phase_ssm_serve():
     check(launches["ssd_intra"] == L,
           f"ssd_intra launched {launches['ssd_intra']} times, want {L} "
           f"(once per layer of the one prefill, never in decode)")
+    check(launches["tesseract_mm"] == SSM_MM * L * (1 + SSM_NEW)
+          and launches["tesseract_mm_stream"] == 0,
+          f"tesseract_mm launched {launches['tesseract_mm']} times, want "
+          f"{SSM_MM} x {L} x (1 prefill + {SSM_NEW} decode steps)")
     check(bool(((ids_all >= 0) & (ids_all < cfg.vocab_size)).all()),
           "out-of-vocab token")
     check(all(bool(torch.isfinite(v).all()) for v in cache.values()),
@@ -1086,7 +1379,9 @@ def main():
         worst = phase(phase_kernels)
         worst.update(phase(phase_bwd_kernels))
         worst.update(phase(phase_ssd_kernels))
+        worst.update(phase(phase_summa_kernels))
         phase(phase_parity)
+        ring_launches = phase(phase_summa_ring)
         phase(phase_train_parity)
         phase(phase_ssm_parity)
         launches, counts = phase(phase_serve)
@@ -1096,7 +1391,8 @@ def main():
         # so they run before the forward's row is written
         bwd_rows = phase(phase_bwd_timings, train_launches, worst)
         rows = (phase(phase_timings, launches, counts, worst) + bwd_rows
-                + phase(phase_ssd_timings, ssm_launches, worst))
+                + phase(phase_ssd_timings, ssm_launches, worst)
+                + phase(phase_summa_timings, launches, ring_launches, worst))
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

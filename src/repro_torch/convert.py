@@ -10,12 +10,17 @@ per layer and no transpose.  The tree
 travels as numpy arrays, so the two packages never share random bits:
 ``params_from_jax`` loads one into the model, ``params_to_numpy`` and
 ``grads_to_numpy`` give the model's params and gradients back in the same
-layout (float32), so tests compare them leaf by leaf.
+layout (float32), so tests compare them leaf by leaf.  Across ranks
+``shard_params`` cuts the reference's global tree into one rank's blocks
+first.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .core.mesh import local_block
+from .models.transformer import dense_param_specs
 
 
 def _load(param, arr, name):
@@ -77,3 +82,34 @@ def grads_to_numpy(model):
     no gradient)."""
     return _tree(model, lambda p: (_np32(p.grad) if p.grad is not None
                                    else np.zeros(p.shape, np.float32)))
+
+
+def shard_params(tree, cfg, ctx, coords):
+    """One rank's local blocks of the reference's global dense param tree
+    (``DenseLM.init``, as numpy arrays) on the mesh of ``ctx``, the rank at
+    ``coords`` ({"data", "depth", "row", "col"}), in the same tree layout:
+    each leaf zero-padded to the layout's padded shape where it has the
+    logical one (vocab and q heads, as the reference's ``winit_padded``
+    pads: a tree drawn for one device serves every layout), then cut by the
+    reference's partition specs (``models/transformer.py::
+    dense_param_specs``, blocks stacked on a leading [L]).
+    ``params_from_jax(shard_params(...), model)`` loads them into that
+    rank's model."""
+    sizes = {"data": ctx.data, "depth": ctx.depth, "row": ctx.rows,
+             "col": ctx.cols}
+    top, block = dense_param_specs(cfg, ctx)
+
+    def cut(arr, spec_entry, lead=()):
+        logical, padded, spec = spec_entry
+        arr = np.asarray(arr)
+        if arr.shape == lead + logical and logical != padded:
+            arr = np.pad(arr, [(0, 0)] * len(lead) + [
+                (0, p - n) for n, p in zip(logical, padded)])
+        return np.ascontiguousarray(local_block(
+            arr, ((),) * len(lead) + spec, sizes, coords))
+
+    out = {name: cut(arr, top[name])
+           for name, arr in tree.items() if name != "blocks"}
+    out["blocks"] = {name: cut(arr, block[name], lead=(cfg.num_layers,))
+                     for name, arr in tree["blocks"].items()}
+    return out

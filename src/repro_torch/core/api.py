@@ -9,9 +9,10 @@ Tesseract (the paper) arranges the tensor-parallel group as a [q, q, d] grid
 - ``gspmd``      : same math as plain einsums + sharding constraints; XLA picks
                    the collective schedule (beyond-paper comparison mode).
 
-The PyTorch port's own copy of ``repro.core.api``.  The port runs only the
-single-device layout so far (``data = depth = rows = cols = seq = 1``):
-``require_single_device`` refuses every other context.
+The PyTorch port's own copy of ``repro.core.api``.  The port runs the
+``tesseract`` and ``summa2d`` layouts over any ``data``, ``depth`` and
+``rows == cols`` (``require_supported`` refuses the rest: a ``seq`` axis,
+``megatron1d`` and ``gspmd``).
 """
 from __future__ import annotations
 
@@ -28,11 +29,12 @@ AXIS_COL = "col"
 class ParallelContext:
     """Hashable parallelism descriptor.
 
-    The copy keeps the layout fields and the attention data path.  The
-    reference's perf knobs (weight/activation gather caching, dgrad
-    reduction, the SUMMA ``matmul_schedule`` and the seq-ring
-    ``attn_schedule``) act only across ranks and come back with the
-    multi-rank slice (ROADMAP Queue A, item A1)."""
+    The copy keeps the layout fields, the SUMMA ``matmul_schedule`` and the
+    attention data path.  The reference's gather-caching and dgrad knobs
+    (``cache_weight_gather``, ``cache_act_gather``, ``reduce_dgrad_in_op``,
+    ``dgrad_rs_bf16``) act only in the backward of a multi-rank matmul and
+    come back with training across ranks (ROADMAP Queue A); the seq-ring
+    ``attn_schedule`` comes back with the ``seq`` axis (item A3)."""
 
     mode: str = "tesseract"  # tesseract | summa2d | megatron1d | gspmd
     data: int = 1
@@ -41,6 +43,15 @@ class ParallelContext:
     cols: int = 1
     # Sequence-axis shards (ring/striped flash attention in the reference).
     seq: int = 1
+    # SUMMA execution schedule of the Tesseract matmuls (core/summa.py):
+    #   "fused" — one all_gather per operand, then kernel #1 (tesseract_mm)
+    #             on the gathered [T, E, F] x [T, F, G];
+    #   "ring"  — Cannon-style skewed double ring over (row, col): q steps,
+    #             each contracting the resident pair with kernel #2
+    #             (tesseract_mm_stream) while the next pair is shifted;
+    #   "auto"  — per-op: ring for large token blocks on q >= 4 grids,
+    #             fused otherwise (summa.py::effective_schedule).
+    matmul_schedule: str = "fused"
     # Attention data path: "jnp" = the plain PyTorch versions, "pallas" =
     # the Hopper kernels, "auto" = the kernels on a CUDA device and the
     # plain versions on the CPU (kernels/ops.py::effective_attn_impl).
@@ -63,12 +74,35 @@ class ParallelContext:
                 raise ValueError("megatron1d uses rows=depth=1, cols=p")
         elif self.mode != "gspmd":
             raise ValueError(f"unknown mode {self.mode!r}")
+        if self.matmul_schedule not in ("fused", "ring", "auto"):
+            raise ValueError(
+                f"matmul_schedule must be 'fused', 'ring' or 'auto', "
+                f"got {self.matmul_schedule!r}")
+        if self.matmul_schedule in ("ring", "auto") and self.mode == "megatron1d":
+            raise ValueError(
+                f"matmul_schedule={self.matmul_schedule!r} is a SUMMA "
+                "schedule selector; megatron1d has no [q, q] grid to ring over")
         if self.attn_impl not in ("jnp", "pallas", "auto"):
             raise ValueError(
                 f"attn_impl must be 'jnp', 'pallas' or 'auto', "
                 f"got {self.attn_impl!r}")
         if self.seq < 1:
             raise ValueError(f"seq must be >= 1, got {self.seq}")
+
+    # ---- derived sizes ----
+    @property
+    def q(self) -> int:
+        return self.cols
+
+    @property
+    def tp(self) -> int:
+        """Size of the tensor-parallel group (depth * rows * cols)."""
+        return self.depth * self.rows * self.cols
+
+    @property
+    def size(self) -> int:
+        """Ranks of the whole mesh (data * depth * rows * cols)."""
+        return self.data * self.tp
 
     @property
     def batch_shards(self) -> int:
@@ -79,6 +113,15 @@ class ParallelContext:
         return dataclasses.replace(self, **kw)
 
     @property
+    def seq_shard_axes(self) -> tuple:
+        """Axes that shard the sequence of the prefill plan."""
+        return (self.axis_depth, self.axis_row)
+
+    @property
+    def model_axes(self) -> tuple:
+        return (self.axis_depth, self.axis_row, self.axis_col)
+
+    @property
     def token_axes(self) -> tuple:
         """Mesh axes that shard the token (batch*seq) dim of activations."""
         if self.mode == "megatron1d":
@@ -86,19 +129,17 @@ class ParallelContext:
         return (self.axis_data, self.axis_depth, self.axis_row)
 
 
-def require_single_device(ctx: ParallelContext) -> None:
-    """Raise NotImplementedError unless ``ctx`` is the one-device layout.
+def require_supported(ctx: ParallelContext) -> None:
+    """Raise NotImplementedError for a layout the port does not run.
 
-    At one device every Tesseract collective is the identity, which is all
-    the port implements so far; the multi-rank mesh over NCCL is ROADMAP
-    Queue A, item A1."""
+    It runs ``tesseract`` and ``summa2d`` at any ``data``, ``depth`` and
+    ``rows == cols``; the ``seq`` axis (ring/striped attention) and the
+    ``megatron1d`` and ``gspmd`` op sets are ROADMAP Queue A, item A3."""
     if ctx.mode not in ("tesseract", "summa2d"):
         raise NotImplementedError(
             f"mode={ctx.mode!r} is not ported yet (ROADMAP Queue A, item A3: "
             f"MegatronOps and the other op sets)")
-    sizes = dict(data=ctx.data, depth=ctx.depth, rows=ctx.rows,
-                 cols=ctx.cols, seq=ctx.seq)
-    if any(n != 1 for n in sizes.values()):
+    if ctx.seq > 1:
         raise NotImplementedError(
-            f"repro_torch runs one device only, got {sizes} (ROADMAP Queue "
-            f"A, item A1: multi-rank Tesseract serving over NCCL)")
+            f"seq={ctx.seq} is not ported yet (ROADMAP Queue A, item A3: "
+            f"ring/striped attention over a seq axis)")

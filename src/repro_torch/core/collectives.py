@@ -1,0 +1,150 @@
+"""Collectives over the logical mesh (counterpart of
+``repro.core.collectives``).
+
+Each function takes the ``Mesh`` and the axes the reference names inside
+``shard_map`` and runs the matching ``torch.distributed`` collective on the
+mesh's group over those axes.  Over a group of size 1 each one is the
+identity, as the reference's collectives are at one device.  Gathered and
+scattered blocks are ordered lexicographically over the axes, first axis
+outermost (the group's rank order, ``core/mesh.py``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from .mesh import Mesh, _axes
+
+_INT32_MAX = torch.iinfo(torch.int32).max
+
+
+def all_gather_inv(mesh: Mesh, x, axes, *, axis: int = 0,
+                   tiled: bool = False):
+    """Gather ``x`` from every member of the group over ``axes``: stacked on
+    a new dim at ``axis`` (``tiled=False``) or concatenated along ``axis``.
+    Every member gets the same bytes."""
+    group = mesh.group(axes)
+    if group is None:
+        return x if tiled else x.unsqueeze(axis)
+    n = mesh.axis_size(axes)
+    x = x.contiguous()
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device) if x.ndim else \
+        torch.empty((n,), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x if x.ndim else x.reshape(1),
+                                group=group)
+    stacked = out.reshape((n,) + tuple(x.shape))
+    axis = axis % (x.ndim + (0 if tiled else 1))
+    if not tiled:
+        return stacked.movedim(0, axis)
+    if axis == 0:
+        return out
+    moved = stacked.movedim(0, axis)               # [..., n, d_axis, ...]
+    return moved.reshape(x.shape[:axis] + (n * x.shape[axis],)
+                         + x.shape[axis + 1:])
+
+
+def all_gather_cat(mesh: Mesh, x, axes, axis: int = 0):
+    """All-gather over (possibly several) axes, concatenated along ``axis``
+    in lexicographic order over ``axes``."""
+    return all_gather_inv(mesh, x, axes, axis=axis, tiled=True)
+
+
+def psum(mesh: Mesh, x, axes):
+    """Sum of ``x`` over the group (a new tensor; ``x`` is left as is)."""
+    return _all_reduce(mesh, x, axes, dist.ReduceOp.SUM)
+
+
+def pmax(mesh: Mesh, x, axes):
+    return _all_reduce(mesh, x, axes, dist.ReduceOp.MAX)
+
+
+def pmin(mesh: Mesh, x, axes):
+    return _all_reduce(mesh, x, axes, dist.ReduceOp.MIN)
+
+
+def _all_reduce(mesh, x, axes, op):
+    group = mesh.group(axes)
+    if group is None:
+        return x
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=op, group=group)
+    return y
+
+
+def psum_scatter_dim(mesh: Mesh, x, axes, dim: int):
+    """Reduce-scatter over ``axes``: the sum over the group, of which this
+    member keeps block ``mesh.index(axes)`` of ``dim``."""
+    group = mesh.group(axes)
+    if group is None:
+        return x
+    n = mesh.axis_size(axes)
+    if x.shape[dim] % n:
+        raise ValueError(f"psum_scatter_dim: dim {dim} of {tuple(x.shape)} "
+                         f"does not split {n} ways")
+    blocks = x.movedim(dim, 0).contiguous()
+    out = torch.empty((blocks.shape[0] // n,) + tuple(blocks.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, blocks, group=group)
+    return out.movedim(0, dim)
+
+
+def axis_linear_index(mesh: Mesh, axes) -> int:
+    """Lexicographic index of this rank over ``axes`` (first axis major)."""
+    return mesh.index(axes)
+
+
+def distributed_argmax(mesh: Mesh, values, index_offset: int, axes):
+    """argmax over the last dim of ``values`` [..., v_loc], each member of
+    the group over ``axes`` holding the shard that starts at global index
+    ``index_offset``; ties go to the smallest global index.  Returns int32
+    global indices, the same on every member."""
+    loc_val, loc_idx = values.max(dim=-1)          # first maximum
+    gmax = pmax(mesh, loc_val, axes)
+    cand = torch.where(loc_val >= gmax,
+                       (loc_idx + index_offset).to(torch.int32),
+                       torch.full_like(loc_idx, _INT32_MAX, dtype=torch.int32))
+    return pmin(mesh, cand, axes)
+
+
+def ppermute(mesh: Mesh, x, axes, perm, *, wait: bool = True):
+    """Send ``x`` along ``perm``, a tuple of (src, dst) pairs over the
+    linear index of ``axes`` (the other coordinates fixed), and receive the
+    block whose dst is this rank.  With ``wait=False`` returns (buffer,
+    works): the caller waits on the works before it reads the buffer, so a
+    shift overlaps the work launched in between."""
+    me = mesh.index(axes)
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    if len(dst) != 1 or len(src) != 1:
+        raise ValueError(f"ppermute: {perm} is not a permutation at {me}")
+    if dst[0] == me:
+        return (x, []) if not wait else x
+    x = x.contiguous()
+    buf = torch.empty_like(x)
+    works = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, x, _global_rank(mesh, axes, dst[0])),
+        dist.P2POp(dist.irecv, buf, _global_rank(mesh, axes, src[0]))])
+    if not wait:
+        return buf, works
+    for w in works:
+        w.wait()
+    return buf
+
+
+def _global_rank(mesh: Mesh, axes, linear: int) -> int:
+    """Global rank of the member at ``linear`` over ``axes``."""
+    coords = {}
+    for a in reversed(_axes(axes)):
+        linear, coords[a] = divmod(linear, mesh.sizes[a])
+    return mesh.rank_at(**coords)
+
+
+def broadcast_scalar(mesh: Mesh, value: float, device) -> float:
+    """Rank 0's ``value`` on every rank of the mesh (float64)."""
+    group = mesh.group(tuple(mesh.sizes))
+    if group is None:
+        return value
+    t = torch.tensor([value], dtype=torch.float64, device=device)
+    dist.broadcast(t, src=0, group=group)
+    return float(t.item())

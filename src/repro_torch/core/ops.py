@@ -1,12 +1,26 @@
 """Operation set the models are written against (PyTorch port of
 ``repro.core.ops``).
 
-The reference's ``TesseractOps`` wraps every primitive in the collectives of
-the [data, depth, row, col] mesh.  The port runs the one-device layout only
-(``core/api.py::require_single_device``), where every one of those
-collectives is the identity, so each method below is the local math alone:
-no fake collectives.  ``Plan`` and ``kv_group_axes`` keep the reference's
-names so the serve code reads the same.
+``TesseractOps`` wraps every primitive in the collectives of the [data,
+depth, row, col] mesh (``core/mesh.py``), on per-rank local blocks:
+
+    activations : [B_loc, S_loc, h/q]   tokens over (data, depth, row) —
+                                        the sequence over (depth, row) on
+                                        the seq-sharded prefill plan — and
+                                        features over col
+    weights     : [F/q, G/q]            (row, col), replicated over
+                                        (data, depth)
+
+At one rank every collective is the identity and each method is its local
+math.  ``Plan`` and ``kv_group_axes`` keep the reference's names so the
+serve code reads the same.
+
+Where the reference's steps leave an output sharded for the host to
+assemble (its ``out_specs``), the port's ranks each run the whole host loop
+(multi-controller), so the outputs the host reads are made whole on every
+rank: ``head_logits`` returns every token's row of the mesh, and
+``host_block`` cuts each rank's block out of a host-layout input (the
+reference's ``in_specs``).
 """
 from __future__ import annotations
 
@@ -15,7 +29,10 @@ from dataclasses import dataclass
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .api import ParallelContext, require_single_device
+from . import collectives as col
+from .api import ParallelContext
+from .mesh import Mesh
+from .summa import tesseract_matmul
 
 
 @dataclass(frozen=True)
@@ -51,78 +68,148 @@ def kv_group_axes(ctx: ParallelContext, plan: Plan) -> tuple:
 
 
 class TesseractOps:
-    """One-device Tesseract op set: the local math of each reference op."""
+    """The Tesseract op set on one rank's local blocks."""
 
     mode_family = "tesseract"
 
-    def __init__(self, ctx: ParallelContext, plan: Plan):
-        require_single_device(ctx)
-        self.ctx = ctx
+    def __init__(self, ctx: ParallelContext, mesh: Mesh, plan: Plan):
+        self.ctx = ctx            # layout and knobs (matmul_schedule)
+        self.mesh = mesh          # this rank's place and process groups
         self.plan = plan
 
     def vocab_pad_multiple(self) -> int:
         return self.ctx.depth * self.ctx.rows * self.ctx.cols
 
+    # ---------------- host layout ----------------
+    def tokens_in_axes(self) -> tuple:
+        """Per-dim mesh axes of host-layout ids [B, S] (``spec_tokens_in``):
+        the row factor of the token sharding is applied by ``embed``."""
+        if self.plan.kind == "long_decode":
+            return ((), ())
+        if self.plan.kind == "decode_dp":
+            return (("data",), ())
+        if self.plan.seq_sharded:
+            return (("data",), ("depth",))
+        return (("data", "depth"), ())
+
+    def host_block(self, t, axes_per_dim):
+        """This rank's block of a host-layout tensor, each dim cut over its
+        axes (lexicographic, first axis outermost)."""
+        for dim, axes in enumerate(axes_per_dim):
+            n = self.mesh.axis_size(axes) if axes else 1
+            if n > 1:
+                m = t.shape[dim] // n
+                t = t.narrow(dim, self.mesh.index(axes) * m, m)
+        return t
+
+    # ---------------- core ops ----------------
     def linear(self, x, w, b=None):
-        """x @ w with the weight in the reference's [in, out] layout.  A bf16
-        product accumulates in fp32 and rounds once, as the reference's
-        fp32-accumulated einsum cast back to x's dtype does."""
-        y = torch.matmul(x, w)
+        """Tesseract C = x @ w (``core/summa.py``: kernel #1 on the fused
+        schedule, kernel #2 on the ring), the weight in the reference's
+        [in, out] layout; a bf16 product accumulates in fp32 and rounds
+        once, as the reference's fp32-accumulated einsum cast back to x's
+        dtype does."""
+        y = tesseract_matmul(self.ctx, self.mesh, x, w)
         if b is not None:
             y = y + b
         return y
 
+    # in tesseract the canonical activation is already feature-sharded, so
+    # both directions are the same op
     linear_up = linear
     linear_down = linear
-    # [.., F] x [F, G] -> [.., G] replicated over col: the reference psums
-    # the col shards' partial products, which at one device is the product
-    linear_to_replicated = linear
+
+    def linear_to_replicated(self, x, w, b=None):
+        """[.., F_loc] x [F_loc, G] -> psum(col) -> [.., G] replicated over
+        col (small outputs every rank needs whole: replicated GQA KV heads
+        when num_kv_heads % q != 0, the ssm mixer's B and C).  The local
+        product is no SUMMA contraction: ``torch.matmul`` accumulates in
+        fp32 and rounds once, as the reference's ``_f32_einsum(...,
+        out_dtype=x.dtype)`` does."""
+        y = col.psum(self.mesh, torch.matmul(x, w), "col")
+        if b is not None:
+            y = y + b
+        return y
+
+    def _scatter_dim(self):
+        # which token dim the row factor is applied to
+        return 1 if self.plan.seq_sharded else 0
 
     def embed(self, ids, table):
-        """ids [B, S] -> rows of ``table`` [v_pad, h]; ids outside the table
-        give zero rows, as the reference's vocab-shard mask does."""
-        valid = (ids >= 0) & (ids < table.shape[0])
-        emb = table[ids.clamp(0, table.shape[0] - 1)]
-        return torch.where(valid[..., None], emb, torch.zeros_like(emb))
+        """ids: this rank's host-layout block [B', S'] (``host_block``),
+        replicated over (row, col); table: local [v_pad/q, h/q] (vocab over
+        row, h over col).  Returns the canonical activation [B_loc, S_loc,
+        h/q]; ids outside the vocab give zero rows."""
+        v_loc = table.shape[0]
+        local = ids - self.mesh.coords["row"] * v_loc
+        valid = (local >= 0) & (local < v_loc)
+        emb = table[local.clamp(0, v_loc - 1)]
+        emb = torch.where(valid[..., None], emb, torch.zeros_like(emb))
+        if self.plan.kind in ("long_decode", "decode_dp"):
+            # tokens not sharded over (depth, row): sum vocab-shard partials
+            return col.psum(self.mesh, emb, "row")
+        # reduce-scatter over row: sums the vocab-shard partials and applies
+        # the final row factor of the token sharding
+        return col.psum_scatter_dim(self.mesh, emb, "row",
+                                    self._scatter_dim())
+
+    def shard_tokens(self, t):
+        """Slice host-layout ids [B', S'] to this rank's token block (the
+        non-summing analogue of embed's reduce-scatter)."""
+        if self.plan.kind in ("long_decode", "decode_dp"):
+            return t
+        dim = self._scatter_dim()
+        n = t.shape[dim] // self.ctx.rows
+        return t.narrow(dim, self.mesh.coords["row"] * n, n)
 
     def rmsnorm(self, x, scale, eps=1e-5):
-        """RMS norm scaled by ``1 + scale`` (zero-initialised scale), in fp32."""
+        """RMS norm scaled by ``1 + scale`` (zero-initialised scale), in
+        fp32: partial sums of squares psum'd over col."""
         xf = x.float()
-        inv = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        ssq = col.psum(self.mesh, (xf * xf).sum(-1, keepdim=True), "col")
+        h = x.shape[-1] * self.ctx.cols
+        inv = torch.rsqrt(ssq / h + eps)
         return ((xf * inv) * (1.0 + scale.float())).to(x.dtype)
 
     def layernorm(self, x, scale, bias, eps=1e-5):
         xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        var = (xf * xf).mean(-1, keepdim=True) - mean * mean
+        s1 = col.psum(self.mesh, xf.sum(-1, keepdim=True), "col")
+        s2 = col.psum(self.mesh, (xf * xf).sum(-1, keepdim=True), "col")
+        h = x.shape[-1] * self.ctx.cols
+        mean = s1 / h
+        var = s2 / h - mean * mean
         y = (xf - mean) * torch.rsqrt(var + eps) * scale.float()
         if bias is not None:
             y = y + bias.float()
         return y.to(x.dtype)
 
+    # ---------------- token/seq info ----------------
+    def seq_shard_index(self) -> int:
+        return self.mesh.index(self.ctx.seq_shard_axes)
+
     def positions(self, seq_loc: int, device=None):
-        """Global position ids [seq_loc]: the single shard starts at 0."""
-        return torch.arange(seq_loc, device=device)
+        """Global position ids [seq_loc] of this rank's sequence block."""
+        pos = torch.arange(seq_loc, device=device)
+        if self.plan.seq_sharded:
+            pos = pos + self.seq_shard_index() * seq_loc
+        return pos
 
-    def head_logits(self, x, w_head, *, vocab_real: int):
-        """Full-vocab logits [B, v_pad] float32 from x [B, 1, h]; padded vocab
-        entries are -inf.  The product runs in fp32 like the reference's
-        fp32-accumulated head einsum with a float32 result."""
-        logits = torch.matmul(x[:, 0, :].float(), w_head.float().t())
-        vmask = torch.arange(w_head.shape[0], device=x.device) < vocab_real
-        return logits.masked_fill(~vmask[None, :], float("-inf"))
+    def gather_seq(self, x, axis: int):
+        """Gather a seq-sharded tensor to full length (K/V in attention)."""
+        if not self.plan.seq_sharded:
+            return x
+        return col.all_gather_cat(self.mesh, x, self.ctx.seq_shard_axes,
+                                  axis=axis)
 
-    def head_sample(self, x, w_head, *, vocab_real: int):
-        """Greedy next-token ids [B] int32 from x [B, 1, h]: the argmax of
-        ``head_logits`` (padded vocab at -inf), ties to the smallest index
-        as the reference's distributed argmax (torch.argmax returns the
-        first maximum)."""
-        logits = self.head_logits(x, w_head, vocab_real=vocab_real)
-        return logits.argmax(-1).to(torch.int32)
+    def kv_full(self, k, axis: int = 1):
+        """K/V (as produced by the projections) -> full-sequence K/V."""
+        return self.gather_seq(k, axis)
 
+    # ---------------- losses / heads ----------------
     def ce_loss(self, x, w_head, labels, *, vocab_real: int,
                 loss_chunk: int = 512, label_mask=None):
-        """Chunked cross-entropy -> (loss_sum, count), fp32 scalars.
+        """Chunked cross-entropy -> (loss_sum, count), fp32 scalars, at one
+        rank.
 
         x: [B, S, h] final hidden states; w_head: [v_pad, h] in the compute
         dtype (cast once per step by the caller); labels: [B, S] ids;
@@ -131,7 +218,12 @@ class TesseractOps:
         does) forms fp32 logits as the reference's fp32-accumulated head
         einsum does, with the padded vocab at -inf, and is recomputed in the
         backward (the reference's ``@jax.checkpoint``), so the [tokens,
-        vocab] fp32 logits never exist whole."""
+        vocab] fp32 logits never exist whole.  Across ranks the loss (its
+        vocab-sharded logsumexp) comes with training across ranks."""
+        if self.mesh.size > 1:
+            raise NotImplementedError(
+                "ce_loss across ranks is not ported yet (ROADMAP Queue A: "
+                "training across ranks)")
         E = x.shape[0] * x.shape[1]
         xf = x.reshape(E, x.shape[-1])
         lab = labels.reshape(E).long()
@@ -154,6 +246,63 @@ class TesseractOps:
             count = count + cs
         return loss_sum, count
 
+    def _row_axes(self, tokens_sharded: bool) -> tuple:
+        """Axes the head's token rows are gathered over so every rank holds
+        every row of the mesh: all the token axes of the decode plan, else
+        the data axis the batch is split over (none on long_decode)."""
+        if tokens_sharded:
+            return self.ctx.token_axes
+        if self.plan.kind == "long_decode":
+            return ()
+        return (self.ctx.axis_data,)
+
+    def _sharded_logits(self, x, w_head, vocab_real, tokens_sharded):
+        """Per-shard logits [B_all, v_loc] float32 (padded vocab at -inf) of
+        every token row of the mesh, and this shard's global vocab offset.
+        The single head implementation that head_sample's distributed
+        argmax and head_logits' gathered rows both reduce."""
+        mesh, ctx = self.mesh, self.ctx
+        xg = col.all_gather_inv(mesh, x[:, 0, :], ctx.axis_col, tiled=True,
+                                axis=1)
+        rows = self._row_axes(tokens_sharded)
+        if rows:
+            xg = col.all_gather_cat(mesh, xg, rows, axis=0)
+        logits = torch.matmul(xg.float(), w_head.float().t())
+        v_loc = w_head.shape[0]
+        v_off = mesh.index(ctx.model_axes) * v_loc
+        vmask = (v_off + torch.arange(v_loc, device=x.device)) < vocab_real
+        return logits.masked_fill(~vmask[None, :], float("-inf")), v_off
+
+    def head_sample(self, x, w_head, *, vocab_real: int,
+                    tokens_sharded: bool | None = None):
+        """Greedy next-token ids [B_all] int32 of every token row of the
+        mesh from x [B_loc, 1, h/q]: the distributed argmax over the vocab
+        shards, ties to the smallest index."""
+        if tokens_sharded is None:
+            tokens_sharded = self.plan.kind == "decode"
+        logits, v_off = self._sharded_logits(x, w_head, vocab_real,
+                                             tokens_sharded)
+        return col.distributed_argmax(self.mesh, logits, v_off,
+                                      self.ctx.model_axes)
+
+    def head_logits(self, x, w_head, *, vocab_real: int,
+                    tokens_sharded: bool | None = None):
+        """Full-vocab logits [B_all, v_pad] float32 of every token row of
+        the mesh from x [B_loc, 1, h/q], the same on every rank; padded
+        vocab entries are -inf.  The products run in fp32 like the
+        reference's fp32-accumulated head einsum with a float32 result.
+        ``tokens_sharded``: whether x's rows are sharded over the token axes
+        (decode plan) or replicated over (depth, row) (prefill last token,
+        long_decode)."""
+        if tokens_sharded is None:
+            tokens_sharded = self.plan.kind == "decode"
+        logits, _ = self._sharded_logits(x, w_head, vocab_real,
+                                         tokens_sharded)
+        # vocab shards are laid out lexicographically over (depth, row,
+        # col), matching all_gather_cat's concatenation order
+        return col.all_gather_cat(self.mesh, logits, self.ctx.model_axes,
+                                  axis=1)
+
 
 def _chunk_loss(x_chunk, w32, labels, mask, vmask):
     """One CE chunk: (sum of mask * (lse - logit[label]), sum of mask)."""
@@ -165,12 +314,14 @@ def _chunk_loss(x_chunk, w32, labels, mask, vmask):
     return ((lse - ll) * mask).sum(), mask.sum()
 
 
-def ops_last_token(x):
-    """[B, S, f] -> [B, 1, f]: the last token.  At one device the single
-    sequence shard holds it, so the reference's gather over the
-    sequence-sharding axes is the identity."""
-    return x[:, -1:]
+def ops_last_token(ops: TesseractOps, x):
+    """[B, S_loc, f] -> [B, 1, f]: the true last token, replicated over the
+    sequence-sharding axes (the last shard holds it)."""
+    lt = x[:, -1:]
+    if not ops.plan.seq_sharded:
+        return lt
+    return col.all_gather_inv(ops.mesh, lt, ops.ctx.seq_shard_axes)[-1]
 
 
-def make_ops(ctx: ParallelContext, plan: Plan):
-    return TesseractOps(ctx, plan)
+def make_ops(ctx: ParallelContext, mesh: Mesh, plan: Plan):
+    return TesseractOps(ctx, mesh, plan)

@@ -7,3 +7,6 @@
 #   paged_attention — paged decode attention, replaces the Pallas _kernel
 #   ssd             — Mamba2 SSD intra-chunk Y and chunk-end states (ssm
 #                     prefill), replaces the Pallas ssd.py _kernel
+#   tesseract_mm    — the SUMMA contraction (fused schedule) and one ring
+#                     step (ring schedule), replaces the Pallas tesseract_mm
+#                     and tesseract_mm_stream

@@ -14,7 +14,9 @@ values, so a config reads the same in both packages (counterpart of
                versions on the CPU
 
 The ssm mixer's SSD kernel is chosen by ``RunConfig.use_pallas``, the
-reference's knob for it (``models/ssm.py``).
+reference's knob for it (``models/ssm.py``).  The SUMMA contraction has no
+knob: every ``tesseract_matmul`` on the card runs kernel #1 or #2
+(``core/summa.py``), as ``matmul_schedule`` picks.
 
 ``LAUNCHES`` counts kernel launches by name: each wrapper adds one where
 it launches its kernel, and nowhere else.
@@ -22,7 +24,8 @@ it launches its kernel, and nowhere else.
 from __future__ import annotations
 
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-            "paged_attention": 0, "ssd_intra": 0}
+            "paged_attention": 0, "ssd_intra": 0, "tesseract_mm": 0,
+            "tesseract_mm_stream": 0}
 
 
 def reset_launches() -> None:

@@ -1,24 +1,38 @@
 """Serving launcher of the PyTorch port: continuous-batching engine over the
-paged KV cache, on one GPU (or the CPU with ``--device cpu``).
+paged KV cache, on one GPU, on a Tesseract mesh of GPUs under ``torchrun``,
+or on the CPU with ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
         --requests 8 --n-slots 8 --prompt-lens 128,512 --new-tokens 16 \
         --block-size 16 --num-blocks 1024 --max-seq-len 1024
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --reduced \
-        --device cpu --prompt-lens 8,16 --new-tokens 8
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.serve --arch yi-6b --rows 2 --cols 2 \
+        --dtype bfloat16 --requests 16 --n-slots 8 \
+        --prompt-lens 128,512,1000,2000 --new-tokens 32 --block-size 16 \
+        --num-blocks 2048 --max-seq-len 4096
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch yi-6b --reduced --rows 2 --cols 2 --device cpu \
+        --prompt-lens 8,16 --new-tokens 8
 
 Requests with mixed prompt lengths are admitted into a fixed slot batch,
 prefilled in buckets, scattered into the block pool and decoded one
 fixed-shape step at a time; finished sequences retire in place.  Weights
-are random, from a fixed seed; params are float32 like the JAX launcher's.
-Only the one-device layout runs so far, so the reference's mesh flags
-(--mode, --data, --depth, --rows, --cols, --matmul-schedule) come back
-with the multi-rank slice (ROADMAP Queue A, item A1).
+are random, from a fixed seed, the same global weights on every layout
+(each rank draws them and keeps its blocks); prompts are drawn from the
+whole vocabulary with ``numpy.random.RandomState(0)``.
+
+Under ``torchrun`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``) every rank
+runs the same engine loop in lockstep on the [data, depth, rows, cols]
+mesh, NCCL on the cards and gloo on the CPU; each rank takes card
+``LOCAL_RANK`` before anything else, and rank 0 prints.
+``--profile-steps N`` then profiles N decode steps on rank 0.
 """
 from __future__ import annotations
 
 import argparse
+import json
 
 
 def main(argv=None):
@@ -36,6 +50,17 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--data", type=int, default=1)
+    ap.add_argument("--depth", type=int, default=1)
+    ap.add_argument("--rows", type=int, default=1)
+    ap.add_argument("--cols", type=int, default=1)
+    ap.add_argument("--matmul-schedule", default="fused",
+                    choices=("fused", "ring", "auto"),
+                    help="SUMMA schedule: gathers + kernel #1, or the "
+                         "skewed ring + kernel #2 per step")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"),
+                    help="param and compute dtype")
     ap.add_argument("--attn-impl", default="auto",
                     choices=("jnp", "pallas", "auto"),
                     help="attention data path: the CUDA kernels (flash "
@@ -47,33 +72,48 @@ def main(argv=None):
                     help="per-request time-to-first-token budget (0 = none)")
     ap.add_argument("--max-waiting", type=int, default=0,
                     help="bound on the admission queue (0 = unbounded)")
+    ap.add_argument("--profile-steps", type=int, default=0,
+                    help="after the run, profile this many decode steps of "
+                         "n-slots 1000-token requests on rank 0")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when asked for")
     args = ap.parse_args(argv)
 
+    from ..core.mesh import init_distributed
+    dev = init_distributed(args.device)
+
     import numpy as np
+    import torch
 
     from ..configs.base import RunConfig
+    from ..core import collectives as col
     from ..core.api import ParallelContext
+    from ..core.mesh import AXES, Mesh
+    from ..kernels import ops as kops
     from ..models.registry import build_model, get_arch, get_reduced
     from ..serve import EngineConfig, InferenceEngine, SamplingParams
 
     arch = get_reduced(args.arch) if args.reduced else get_arch(args.arch)
-    run = RunConfig(param_dtype="float32", compute_dtype="float32",
+    run = RunConfig(param_dtype=args.dtype, compute_dtype=args.dtype,
                     attn_impl=args.attn_impl)
-    ctx = ParallelContext(attn_impl=run.attn_impl)
-    model = build_model(arch.model, ctx, run, device=args.device, seed=0)
+    ctx = ParallelContext(data=args.data, depth=args.depth, rows=args.rows,
+                          cols=args.cols,
+                          matmul_schedule=args.matmul_schedule,
+                          attn_impl=run.attn_impl)
+    mesh = Mesh(ctx)
+    rank0 = mesh.rank == 0
+    model = build_model(arch.model, ctx, run, device=dev, seed=0, mesh=mesh)
     engine = InferenceEngine(model, EngineConfig(
         n_slots=args.n_slots, block_size=args.block_size,
         num_blocks=args.num_blocks, max_seq_len=args.max_seq_len,
-        max_waiting=args.max_waiting), device=args.device)
+        max_waiting=args.max_waiting), device=dev)
 
     plens = [int(x) for x in args.prompt_lens.split(",")]
     rng = np.random.RandomState(0)
-    vocab = min(250, model.cfg.vocab_size)
     reqs = []
     for i in range(args.requests):
-        prompt = rng.randint(0, vocab, (plens[i % len(plens)],)).tolist()
+        prompt = rng.randint(0, model.cfg.vocab_size,
+                             (plens[i % len(plens)],)).tolist()
         reqs.append(engine.add_request(
             prompt,
             SamplingParams(temperature=args.temperature, top_k=args.top_k,
@@ -82,27 +122,113 @@ def main(argv=None):
             deadline_s=args.deadline_s or None,
             ttft_budget_s=args.ttft_budget_s or None))
 
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
     results = engine.run()
-    for r in reqs:
-        print(f"req {r.rid} (prompt {r.orig_prompt_len}, "
-              f"preempted {r.preemptions}x): {results[r.rid]}")
+    launches = dict(kops.LAUNCHES)
+    peaks = None
+    if cuda:
+        torch.cuda.synchronize()
+        peak = torch.tensor([torch.cuda.max_memory_allocated() / 2**30],
+                            dtype=torch.float64, device=dev)
+        peaks = col.all_gather_inv(mesh, peak, AXES, tiled=True).tolist()
     s = engine.stats
-    lat = s.latency_percentiles()
-    ttft, itl = s.ttft_percentiles(), s.itl_percentiles()
-    print(f"steps={s.steps} prefills={s.prefills} "
-          f"preemptions={s.preemptions} tokens={s.tokens} "
-          f"tokens/s={s.tokens_per_s():.1f} "
-          f"p50={lat['p50_ms']:.1f}ms p95={lat['p95_ms']:.1f}ms "
-          f"p99={lat['p99_ms']:.1f}ms "
-          f"attn_impl={engine.attn_impl} device={engine.device}")
-    print(f"slo: health={s.health} "
-          f"ttft p50={ttft['p50_ms']:.1f}ms p99={ttft['p99_ms']:.1f}ms "
-          f"itl p50={itl['p50_ms']:.1f}ms p99={itl['p99_ms']:.1f}ms "
-          f"shed={s.shed} failed={s.failed} "
-          f"nan_quarantines={s.nan_quarantines} "
-          f"batch_shrinks={s.batch_shrinks}")
+    if rank0:
+        for r in reqs:
+            print(f"req {r.rid} (prompt {r.orig_prompt_len}, "
+                  f"preempted {r.preemptions}x): {results[r.rid]}")
+        lat = s.latency_percentiles()
+        ttft, itl = s.ttft_percentiles(), s.itl_percentiles()
+        print(f"steps={s.steps} prefills={s.prefills} "
+              f"preemptions={s.preemptions} tokens={s.tokens} "
+              f"tokens/s={s.tokens_per_s():.1f} "
+              f"p50={lat['p50_ms']:.1f}ms p95={lat['p95_ms']:.1f}ms "
+              f"p99={lat['p99_ms']:.1f}ms "
+              f"attn_impl={engine.attn_impl} device={engine.device}")
+        print(f"slo: health={s.health} "
+              f"ttft p50={ttft['p50_ms']:.1f}ms p99={ttft['p99_ms']:.1f}ms "
+              f"itl p50={itl['p50_ms']:.1f}ms p99={itl['p99_ms']:.1f}ms "
+              f"shed={s.shed} failed={s.failed} "
+              f"nan_quarantines={s.nan_quarantines} "
+              f"batch_shrinks={s.batch_shrinks}")
+        print(f"mesh: data={ctx.data} depth={ctx.depth} rows={ctx.rows} "
+              f"cols={ctx.cols} matmul_schedule={ctx.matmul_schedule} "
+              f"dtype={args.dtype}; launches per rank {launches}"
+              + (f"; peak device memory per rank GiB "
+                 f"{[round(p, 2) for p in peaks]}" if peaks else ""),
+              flush=True)
+    if args.profile_steps:
+        profile = _profile_decode(engine, rng, args.profile_steps, rank0)
+        if rank0:
+            print(json.dumps(profile), flush=True)
     return engine
 
 
+def _profile_decode(engine, rng, steps, rank0):
+    """Decode steps of ``n_slots`` resident 1000-token requests, the last
+    ``steps`` of them under torch.profiler on rank 0 (every rank runs them):
+    device time by kernel, the NCCL kernels' share, the idle share and the
+    host's time by op."""
+    import contextlib
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..serve import SamplingParams
+    vocab = engine.model.cfg.vocab_size
+    for _ in range(engine.cfg.n_slots):
+        engine.add_request(rng.randint(0, vocab, 1000).tolist(),
+                           SamplingParams(max_new_tokens=steps + 3))
+    engine.step()                  # admit + prefill all, first decode
+    engine.step()
+    torch.cuda.synchronize()
+    prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            if rank0 else contextlib.nullcontext())
+    with prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    engine.run()
+    if not rank0:
+        return None
+    events = prof.key_averages()
+    # device kernels only: "nccl:*" are annotations over the NCCL kernels
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / steps)
+                      for e in events
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0
+                      and not e.key.startswith("nccl:")),
+                     key=lambda kv: -kv[1])
+    busy = sum(ms for _, ms in kernels)
+    nccl = sum(ms for k, ms in kernels if "nccl" in k.lower())
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / steps, e.count
+                    // steps) for e in events
+                   if e.device_type == DeviceType.CPU),
+                  key=lambda kv: -kv[1])
+    return {"profile": f"decode step on rank 0, {engine.cfg.n_slots} slots "
+                       f"at ~1000 positions",
+            "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
+            "device_idle_share": (1.0 - busy / wall_ms) if busy else None,
+            "nccl_ms_per_step": nccl,
+            "nccl_share_of_busy": nccl / busy if busy else None,
+            "nccl_share_of_wall": nccl / wall_ms,
+            "top_kernels_ms_per_step": [[k[:80], ms]
+                                        for k, ms in kernels[:12]],
+            "top_host_ops_self_ms_calls_per_step": [[k[:60], ms, n]
+                                                    for k, ms, n in host[:15]]}
+
+
 if __name__ == "__main__":
-    main()
+    import torch.distributed as dist
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

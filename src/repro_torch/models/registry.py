@@ -38,9 +38,12 @@ def get_reduced(name: str) -> ArchConfig:
 
 
 def build_model(cfg: ModelConfig, ctx: ParallelContext, run: RunConfig, *,
-                device="cuda", seed: int = 0):
+                device="cuda", seed: int = 0, mesh=None):
     """Model with random weights from ``torch.Generator(device).manual_seed
-    (seed)``, on ``device`` (the card unless the caller asks for the CPU)."""
+    (seed)``, on ``device`` (the card unless the caller asks for the CPU).
+    Across ranks pass the ``core.mesh.Mesh`` of ``ctx``, built once on
+    every rank; each rank then holds its blocks of the same global
+    weights."""
     if cfg.family == "dense":
         from .transformer import DenseLM as cls
     elif cfg.family == "ssm":
@@ -51,4 +54,4 @@ def build_model(cfg: ModelConfig, ctx: ParallelContext, run: RunConfig, *,
             f"item A3)")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return cls(cfg, ctx, run, device=dev, generator=gen)
+    return cls(cfg, ctx, run, device=dev, generator=gen, mesh=mesh)

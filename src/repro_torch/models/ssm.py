@@ -19,9 +19,9 @@ these static steps, as the reference's ``build_prefill_step`` /
 At one device the reference's sequence-sharded prefill branches are the
 identity: the halo of the causal conv is zeros, the state entering the
 single shard is zero, and the last shard's state is this shard's.  The
-port keeps the local math only (``require_single_device`` refuses other
-layouts).  Not ported yet (ROADMAP Queue A, item A3): ``loss`` and ssm
-training.
+port keeps the local math only: across ranks ``MambaLM`` raises (ROADMAP
+Queue A: the ssm family across ranks).  Not ported yet (ROADMAP Queue A,
+item A3): ``loss`` and ssm training.
 """
 from __future__ import annotations
 
@@ -29,7 +29,8 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig, RunConfig, round_up
-from ..core.api import ParallelContext, require_single_device
+from ..core.api import ParallelContext
+from ..core.mesh import Mesh
 from ..core.ops import Plan, make_ops, ops_last_token
 from ..kernels.ssd import ssd_intra, ssd_intra_plain
 from .transformer import WINIT_SCALE, _param
@@ -109,12 +110,17 @@ class MambaLM(nn.Module):
     rmsnorm and an untied head."""
 
     def __init__(self, cfg: ModelConfig, ctx: ParallelContext, run: RunConfig,
-                 *, device: torch.device, generator: torch.Generator):
+                 *, device: torch.device, generator: torch.Generator,
+                 mesh: Mesh | None = None):
         super().__init__()
-        require_single_device(ctx)
+        if ctx.size > 1:
+            raise NotImplementedError(
+                "MambaLM runs at one rank (ROADMAP Queue A: the ssm family "
+                "across ranks, with the seq-sharded prefill branches)")
+        self.mesh = mesh if mesh is not None else Mesh(ctx)
         self.cfg, self.ctx, self.run = cfg, ctx, run
         self.device = device
-        probe = make_ops(ctx, Plan.for_shape("train"))
+        probe = make_ops(self.ctx, self.mesh, Plan.for_shape("train"))
         self.v_pad = round_up(cfg.vocab_size, probe.vocab_pad_multiple())
         self.pdt = getattr(torch, run.param_dtype)
         self.cdt = getattr(torch, run.compute_dtype)
@@ -261,7 +267,7 @@ class MambaLM(nn.Module):
         if tokens.shape[1] < K - 1:
             raise ValueError(f"prefill needs at least K-1 = {K - 1} tokens "
                              f"for the conv cache, got {tokens.shape[1]}")
-        ops = make_ops(self.ctx, Plan.for_shape("prefill"))
+        ops = make_ops(self.ctx, self.mesh, Plan.for_shape("prefill"))
         x = ops.embed(tokens, self.embed).to(self.cdt)
         states, tails = [], {"conv_x": [], "conv_B": [], "conv_C": []}
         for blk in self.blocks:
@@ -271,7 +277,7 @@ class MambaLM(nn.Module):
             states.append(h_last)
             for name, t in zip(tails, pre):
                 tails[name].append(t[:, -(K - 1):, :].to(self.cdt))
-        ids = self._sample(ops, ops_last_token(x))
+        ids = self._sample(ops, ops_last_token(ops, x))
         cache = {"state": torch.stack(states)}
         cache.update({k: torch.stack(v) for k, v in tails.items()})
         return ids[:, None], cache
@@ -281,7 +287,7 @@ class MambaLM(nn.Module):
         """One greedy step for every sequence: ids [B, 1] -> (next ids
         [B, 1] int32, the new cache).  ``pos`` is unused, as in the
         reference (the state carries the position)."""
-        ops = make_ops(self.ctx, Plan.for_shape("decode"))
+        ops = make_ops(self.ctx, self.mesh, Plan.for_shape("decode"))
         x = ops.embed(ids, self.embed).to(self.cdt)
         new = {k: [] for k in cache}
         for i, blk in enumerate(self.blocks):

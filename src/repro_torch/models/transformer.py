@@ -1,18 +1,23 @@
 """Dense decoder-only LM (llama/yi/smollm/nemotron family): PyTorch port of
 ``repro.models.transformer.DenseLM``, serving and training paths.
 
-Covers GQA, GLU / squared-ReLU MLPs, rmsnorm/layernorm and RoPE at the
-one-device layout (no head or vocab padding arises there: q = 1).  Weights
-keep the reference's [in, out] layout (``x @ w``), so params carried over
-from the JAX package load by reshaping alone (convert.py).  The layer stack
-is a Python loop over ``blocks`` in place of ``lax.scan``.
+Covers GQA (KV heads sharded over col, or replicated when
+``num_kv_heads % q != 0``), GLU / squared-ReLU MLPs, rmsnorm/layernorm,
+RoPE and head padding when ``num_heads % q != 0``.  The parameters are one
+rank's local blocks of the reference's global tree, cut by the reference's
+partition specs (``dense_param_specs``); weights keep the reference's
+[in, out] layout (``x @ w``), so params carried over from the JAX package
+load by slicing alone (convert.py).  The layer stack is a Python loop over
+``blocks`` in place of ``lax.scan``.
 
-Serving entry points: ``prefill`` (bucketed, right-padded prompts with true
-``lengths``) and ``decode_paged`` (one token per slot against the paged
-pool, updated in place), both without autograd.  Training entry point:
-``loss`` (the mean next-token cross-entropy of a batch, differentiable in
-every parameter).  The dense static decode loop and the chunked-prefill
-path are not ported yet (ROADMAP Queue A).
+Serving entry points, without autograd, each taking the host-layout inputs
+every rank of the mesh passes alike: ``prefill`` (bucketed, right-padded
+prompts with true ``lengths``; the sequence sharded over (depth, row)) and
+``decode_paged`` (one token per slot against the rank's KV group's
+partition of the paged pool, updated in place).  Training entry point,
+at one rank: ``loss`` (the mean next-token cross-entropy of a batch,
+differentiable in every parameter).  The dense static decode loop and the
+chunked-prefill path are not ported yet (ROADMAP Queue A).
 """
 from __future__ import annotations
 
@@ -21,8 +26,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig, RunConfig, round_up
-from ..core.api import ParallelContext, require_single_device
-from ..core.ops import Plan, make_ops
+from ..core import collectives as col
+from ..core.api import ParallelContext
+from ..core.mesh import Mesh, local_block
+from ..core.ops import Plan, kv_group_axes, make_ops
 from . import common as cm
 
 WINIT_SCALE = 0.02     # reference common.winit
@@ -32,63 +39,121 @@ def _param(shape, dtype, device):
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
-class DenseBlock(nn.Module):
-    """One layer's parameters, named as the reference's ``blocks`` dict."""
+def dense_param_specs(cfg: ModelConfig, ctx: ParallelContext):
+    """The reference's ``DenseLM.specs`` (``repro/core/ops.py:86-125`` and
+    ``repro/models/transformer.py:103-137``) as a table: (top-level params,
+    per-layer params), each {name: (logical shape, padded global shape,
+    per-dim mesh axes)}, in the modules' registration order.  A dim's axes
+    split it lexicographically, first axis outermost; padded rows (vocab,
+    q heads) are zeros, as the reference's ``winit_padded`` leaves them."""
+    h, ff, kv = cfg.d_model, cfg.d_ff, cfg.num_kv_heads
+    H, D = cfg.num_heads, cfg.resolved_head_dim
+    Hp = round_up(H, ctx.cols)
+    v_pad = round_up(cfg.vocab_size, ctx.tp)
+    kv_shard = kv % ctx.cols == 0
+    w2d = (("row",), ("col",))                    # spec_w2d
+    vec = (("col",),)                             # spec_vec / spec_norm
+    kv_w = w2d if kv_shard else (("col",), ())    # spec_w_to_replicated
+    kv_b = vec if kv_shard else ((),)             # spec_vec_replicated
 
-    def __init__(self, cfg: ModelConfig, Hp: int, D: int, dtype, device):
+    def same(shape, spec):
+        return (shape, shape, spec)
+
+    top = {"embed": ((cfg.vocab_size, h), (v_pad, h), w2d),     # spec_embed
+           "head": ((cfg.vocab_size, h), (v_pad, h),            # spec_head
+                    (("depth", "row", "col"), ())),
+           "ln_f": same((h,), vec)}
+    if cfg.norm == "layernorm":
+        top["ln_fb"] = same((h,), vec)
+    block = {"ln1": same((h,), vec), "ln2": same((h,), vec),
+             "wq": ((h, H * D), (h, Hp * D), w2d),
+             "wk": same((h, kv * D), kv_w), "wv": same((h, kv * D), kv_w),
+             "wo": ((H * D, h), (Hp * D, h), w2d),
+             "w_down": same((ff, h), w2d), "w_up": same((h, ff), w2d)}
+    if cfg.mlp_glu:
+        block["w_gate"] = same((h, ff), w2d)
+    if cfg.use_bias:
+        block.update(bq=same((Hp * D,), vec), bv=same((kv * D,), kv_b),
+                     bo=same((h,), vec), b_up=same((ff,), vec),
+                     b_down=same((h,), vec))
+    if cfg.norm == "layernorm":
+        block.update(ln1b=same((h,), vec), ln2b=same((h,), vec))
+    return top, block
+
+
+def local_shape(shape, spec, mesh: Mesh):
+    return tuple(n // (mesh.axis_size(a) if a else 1)
+                 for n, a in zip(shape, spec))
+
+
+class DenseBlock(nn.Module):
+    """One layer's local params, named as the reference's ``blocks``."""
+
+    def __init__(self, shapes: dict, dtype, device):
         super().__init__()
-        h, ff, kv = cfg.d_model, cfg.d_ff, cfg.num_kv_heads
-        P = lambda *shape: _param(shape, dtype, device)
-        self.ln1, self.ln2 = P(h), P(h)
-        self.wq, self.wk, self.wv = P(h, Hp * D), P(h, kv * D), P(h, kv * D)
-        self.wo, self.w_down = P(Hp * D, h), P(ff, h)
-        self.w_up = P(h, ff)
-        if cfg.mlp_glu:
-            self.w_gate = P(h, ff)
-        if cfg.use_bias:
-            self.bq, self.bv, self.bo = P(Hp * D), P(kv * D), P(h)
-            self.b_up, self.b_down = P(ff), P(h)
-        if cfg.norm == "layernorm":
-            self.ln1b, self.ln2b = P(h), P(h)
+        for name, shape in shapes.items():
+            setattr(self, name, _param(shape, dtype, device))
 
 
 class DenseLM(nn.Module):
     def __init__(self, cfg: ModelConfig, ctx: ParallelContext, run: RunConfig,
-                 *, device: torch.device, generator: torch.Generator):
+                 *, device: torch.device, generator: torch.Generator,
+                 mesh: Mesh | None = None):
         super().__init__()
-        require_single_device(ctx)
+        self.mesh = mesh if mesh is not None else Mesh(ctx)
+        if not self.mesh.fits(ctx):
+            raise ValueError(f"mesh {self.mesh.sizes} does not match the "
+                             f"context's layout")
         self.cfg, self.ctx, self.run = cfg, ctx, run
         self.device = device
-        self.Hp = round_up(cfg.num_heads, ctx.cols)
+        q = ctx.cols
+        self.Hp = round_up(cfg.num_heads, q)
+        self.kv_shard = cfg.num_kv_heads % q == 0
         self.D = cfg.resolved_head_dim
-        probe = make_ops(ctx, Plan.for_shape("train"))
-        self.v_pad = round_up(cfg.vocab_size, probe.vocab_pad_multiple())
+        self.Hq_loc = self.Hp // q
+        self.Hkv_loc = (cfg.num_kv_heads // q if self.kv_shard
+                        else cfg.num_kv_heads)
+        self.v_pad = round_up(cfg.vocab_size, ctx.tp)
         self.pdt = getattr(torch, run.param_dtype)
         self.cdt = getattr(torch, run.compute_dtype)
-        h = cfg.d_model
-        self.embed = _param((self.v_pad, h), self.pdt, device)
-        self.head = _param((self.v_pad, h), self.pdt, device)
-        self.ln_f = _param((h,), self.pdt, device)
-        if cfg.norm == "layernorm":
-            self.ln_fb = _param((h,), self.pdt, device)
+        self.top_specs, self.block_specs = dense_param_specs(cfg, ctx)
+        for name, (_, shape, spec) in self.top_specs.items():
+            setattr(self, name, _param(local_shape(shape, spec, self.mesh),
+                                       self.pdt, device))
+        shapes = {n: local_shape(s, sp, self.mesh)
+                  for n, (_, s, sp) in self.block_specs.items()}
         self.blocks = nn.ModuleList(
-            DenseBlock(cfg, self.Hp, self.D, self.pdt, device)
+            DenseBlock(shapes, self.pdt, device)
             for _ in range(cfg.num_layers))
         self.reset_parameters(generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
-        """The reference's init scales: weights N(0, 0.02), biases zero, norm
-        scales zero for rmsnorm's (1 + scale) and one for layernorm."""
+        """The reference's init scales: weights N(0, 0.02) drawn at their
+        logical global shape and zero-padded (so every layout of the mesh
+        holds blocks of the same global weights), biases zero, norm scales
+        zero for rmsnorm's (1 + scale) and one for layernorm.  Every rank
+        draws every global leaf in the same order and keeps its block."""
         layernorm = self.cfg.norm == "layernorm"
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("ln1", "ln2", "ln_f"):
+        items = [(n, p, self.top_specs[n])
+                 for n, p in self.named_parameters(recurse=False)]
+        for blk in self.blocks:
+            items += [(n, p, self.block_specs[n])
+                      for n, p in blk.named_parameters()]
+        for name, p, (logical, padded, spec) in items:
+            if name in ("ln1", "ln2", "ln_f"):
                 p.fill_(1.0 if layernorm else 0.0)
             elif p.ndim == 1:
                 p.zero_()
             else:
-                p.normal_(0.0, WINIT_SCALE, generator=generator)
+                w = torch.empty(logical, dtype=p.dtype, device=p.device)
+                w.normal_(0.0, WINIT_SCALE, generator=generator)
+                if logical != padded:
+                    w = torch.nn.functional.pad(w, [
+                        x for lg, pd in zip(reversed(logical),
+                                            reversed(padded))
+                        for x in (0, pd - lg)])
+                p.copy_(local_block(w, spec, self.mesh.sizes, self.mesh.coords))
 
     # ------------------------------------------------------------ helpers
     def _w(self, p):
@@ -101,16 +166,39 @@ class DenseLM(nn.Module):
             return ops.layernorm(x, scale, bias, self.cfg.norm_eps)
         return ops.rmsnorm(x, scale, self.cfg.norm_eps)
 
+    def _global_heads(self, device):
+        """[Hq_loc] global indices of this rank's q heads (col block)."""
+        return (self.mesh.coords["col"] * self.Hq_loc
+                + torch.arange(self.Hq_loc, device=device))
+
+    def _head_mask(self, device):
+        """[Hq_loc] 1 for real heads, 0 for padded (smollm 15 -> 16)."""
+        if self.Hp == self.cfg.num_heads:
+            return None
+        return (self._global_heads(device) < self.cfg.num_heads).to(self.cdt)
+
+    def _kv_map(self, device):
+        """[Hq_loc] int32 q head -> kv head of the local K/V: contiguous GQA
+        over the sharded KV heads, or the global q head's kv head when the
+        KV heads are replicated."""
+        if self.kv_shard:
+            return cm.contiguous_kv_map(self.Hq_loc, self.Hkv_loc, device)
+        cfg = self.cfg
+        group = max(1, cfg.num_heads // cfg.num_kv_heads)
+        return torch.clamp(self._global_heads(device) // group,
+                           max=cfg.num_kv_heads - 1).to(torch.int32)
+
     def _qkv(self, blk, x, ops, positions):
-        """Project and rope. Returns q [B,T,Hq,D], k/v [B,T,Hkv,D]."""
+        """Project and rope. Returns q [B,T,Hq_loc,D], k/v [B,T,Hkv_loc,D]."""
         cfg, D = self.cfg, self.D
         B, T = x.shape[:2]
         q = ops.linear_up(x, self._w(blk.wq), getattr(blk, "bq", None))
-        k = ops.linear_up(x, self._w(blk.wk))
-        v = ops.linear_up(x, self._w(blk.wv), getattr(blk, "bv", None))
-        q = q.reshape(B, T, self.Hp, D)
-        k = k.reshape(B, T, cfg.num_kv_heads, D)
-        v = v.reshape(B, T, cfg.num_kv_heads, D)
+        kv_op = ops.linear_up if self.kv_shard else ops.linear_to_replicated
+        k = kv_op(x, self._w(blk.wk))
+        v = kv_op(x, self._w(blk.wv), getattr(blk, "bv", None))
+        q = q.reshape(B, T, self.Hq_loc, D)
+        k = k.reshape(B, T, self.Hkv_loc, D)
+        v = v.reshape(B, T, self.Hkv_loc, D)
         if cfg.use_rope:
             q = cm.apply_rope(q, positions, cfg.rope_theta)
             k = cm.apply_rope(k, positions, cfg.rope_theta)
@@ -118,7 +206,10 @@ class DenseLM(nn.Module):
 
     def _attn_out(self, blk, out, ops):
         B, T = out.shape[:2]
-        out = out.reshape(B, T, self.Hp * self.D)
+        mask = self._head_mask(out.device)
+        if mask is not None:
+            out = out * mask[None, None, :, None]
+        out = out.reshape(B, T, self.Hq_loc * self.D)
         return ops.linear_down(out, self._w(blk.wo), getattr(blk, "bo", None))
 
     def _mlp(self, blk, x, ops):
@@ -137,36 +228,47 @@ class DenseLM(nn.Module):
     def _final(self, ops, x):
         return self._norm(ops, x, self.ln_f, getattr(self, "ln_fb", None))
 
-    def _logits(self, ops, x):
+    def _logits(self, ops, x, **kw):
         return ops.head_logits(x, self._w(self.head),
-                               vocab_real=self.cfg.vocab_size)
+                               vocab_real=self.cfg.vocab_size, **kw)
 
     # ------------------------------------------------- prefill and train
     def _block(self, blk, x, ops, qpos):
         """Attention + MLP sublayers (residuals included); also returns this
-        layer's K/V for the cache."""
+        layer's full-sequence K/V for the cache."""
         h = self._norm(ops, x, blk.ln1, getattr(blk, "ln1b", None))
         q, k, v = self._qkv(blk, h, ops, qpos)
-        # the Tesseract prefill plan is seq-sharded even at one device, so,
-        # as in the reference, no static q offset: the flash kernel walks
-        # every KV tile under the causal mask.  The train plan is not, so
-        # q_start = 0 turns the kernels' causal tile skipping on.
+        # seq-sharded plans gather K/V to full length (positions 0..S-1)
+        kf, vf = ops.kv_full(k, axis=1), ops.kv_full(v, axis=1)
+        ka, va = kf, vf
+        if not self.kv_shard:
+            kv_map = self._kv_map(x.device).long()
+            ka, va = kf[:, :, kv_map], vf[:, :, kv_map]
+        # the Tesseract prefill plan is seq-sharded, so, as in the
+        # reference, no static q offset: the flash kernel walks every KV
+        # tile under the causal mask of the q rows' positions.  The train
+        # plan is not, so q_start = 0 turns the kernels' causal tile
+        # skipping on.
         q_start = None if ops.plan.seq_sharded else 0
-        out = cm.attention(q, k, v, q_pos=qpos, causal=True,
+        out = cm.attention(q, ka, va, q_pos=qpos, causal=True,
                            local_window=self.cfg.local_window,
                            impl=self.ctx.attn_impl, q_start=q_start)
         x = x + self._attn_out(blk, out, ops)
         h2 = self._norm(ops, x, blk.ln2, getattr(blk, "ln2b", None))
         x = x + self._mlp(blk, h2, ops)
-        return x, (k.to(self.cdt), v.to(self.cdt))
+        return x, (kf.to(self.cdt), vf.to(self.cdt))
 
     @torch.no_grad()
     def prefill(self, tokens, lengths):
         """Process right-padded prompts tokens [B, S] with true ``lengths``
-        [B].  Returns (full-vocab logits [B, v_pad] float32 at each
-        request's last position, cache {"k", "v": [L, B, S, Hkv, D]})."""
-        ops = make_ops(self.ctx, Plan.for_shape("prefill"))
-        x = ops.embed(tokens, self.embed).to(self.cdt)
+        [B] (host layout, the same on every rank; B over data, S over
+        (depth, row)).  Returns (full-vocab logits [B, v_pad] float32 at
+        each request's last position, the same on every rank; cache {"k",
+        "v": [L, B, S, Hkv_loc, D]}, every request's full-sequence K/V of
+        this rank's KV heads)."""
+        ops = make_ops(self.ctx, self.mesh, Plan.for_shape("prefill"))
+        ids = ops.host_block(tokens, ops.tokens_in_axes())
+        x = ops.embed(ids, self.embed).to(self.cdt)
         qpos = ops.positions(x.shape[1], device=x.device)
         ks, vs = [], []
         for blk in self.blocks:
@@ -174,18 +276,30 @@ class DenseLM(nn.Module):
             ks.append(k)
             vs.append(v)
         x = self._final(ops, x)
-        return (self._logits(ops, last_token_at(x, lengths)),
-                {"k": torch.stack(ks), "v": torch.stack(vs)})
+        lens = ops.host_block(lengths, (("data",),))
+        # every rank gets every request's K/V: a request's blocks may live
+        # in a KV group of another data coordinate
+        cache = {name: col.all_gather_cat(self.mesh, torch.stack(t), "data",
+                                          axis=1)
+                 for name, t in (("k", ks), ("v", vs))}
+        return (self._logits(ops, last_token_at(ops, x, lens),
+                             tokens_sharded=False), cache)
 
     def loss(self, batch):
         """Mean next-token cross-entropy of ``batch`` = {"tokens", "labels":
         [B, S] int, optional "mask": [B, S]}: embed, the blocks at
         positions 0..S-1, the final norm and the chunked CE over the
         compute-dtype head, loss_sum / max(count, 1).  With remat="full"
-        each block is recomputed in the backward."""
-        ops = make_ops(self.ctx, Plan.for_shape("train"))
+        each block is recomputed in the backward.  One rank only: training
+        across ranks is ROADMAP Queue A."""
+        if self.mesh.size > 1:
+            raise NotImplementedError(
+                "DenseLM.loss across ranks is not ported yet (ROADMAP Queue "
+                "A: training across ranks)")
+        ops = make_ops(self.ctx, self.mesh, Plan.for_shape("train"))
         x = ops.embed(batch["tokens"], self.embed).to(self.cdt)
         qpos = ops.positions(x.shape[1], device=x.device)
+
         def block(blk, x):
             return self._block(blk, x, ops, qpos)[0]
 
@@ -203,11 +317,16 @@ class DenseLM(nn.Module):
 
     # ------------------------------------------------------------- decode
     def paged_cache_shape(self, num_blocks: int, block_size: int):
-        """Shape and dtype of each of the pool's "k" and "v" tensors,
-        [L, P, bs, Hkv, D] in the compute dtype."""
-        cfg = self.cfg
-        return ((cfg.num_layers, num_blocks, block_size, cfg.num_kv_heads,
+        """Shape and dtype of this rank's "k" and "v" pool tensors,
+        [L, num_blocks, bs, Hkv_loc, D] in the compute dtype, for a KV
+        group's partition of ``num_blocks`` blocks."""
+        return ((self.cfg.num_layers, num_blocks, block_size, self.Hkv_loc,
                  self.D), self.cdt)
+
+    def decode_plan(self, n_slots: int) -> Plan:
+        return Plan.for_shape("decode", global_batch=n_slots,
+                              batch_shards=self.ctx.batch_shards,
+                              data=self.ctx.data)
 
     def _block_decode_paged(self, blk, x, pool_l, table, pos, ops, *, idx,
                             kv_map):
@@ -226,18 +345,25 @@ class DenseLM(nn.Module):
     def decode_paged(self, pool, table, ids, pos):
         """One continuous-batching step against the paged block pool.
 
-        pool: {"k", "v": [L, P, bs, Hkv, D]}, updated in place with each
-        slot's new K/V; table: [B, nb] int32 block ids; ids: [B, 1] input
-        tokens; pos: [B] int32 positions.  Returns full-vocab logits
-        [B, v_pad] float32."""
-        ops = make_ops(self.ctx, Plan.for_shape(
-            "decode", global_batch=ids.shape[0],
-            batch_shards=self.ctx.batch_shards, data=self.ctx.data))
-        x = ops.embed(ids, self.embed).to(self.cdt)
+        Host layout, the same on every rank: table [n_slots, nb] int32
+        GLOBAL block ids (each slot's entries in its own KV group's
+        partition), ids [n_slots, 1] input tokens, pos [n_slots] int32
+        positions.  pool: this rank's partition {"k", "v": [L, P_loc, bs,
+        Hkv_loc, D]}, updated in place with the new K/V of its group's
+        slots.  Returns full-vocab logits [n_slots, v_pad] float32, the
+        same on every rank."""
+        ops = make_ops(self.ctx, self.mesh, self.decode_plan(ids.shape[0]))
+        gaxes = kv_group_axes(self.ctx, ops.plan)
+        # the group's slots, with its partition's offset subtracted (the
+        # reference's build_paged_decode_step)
+        table = (ops.host_block(table, (gaxes, ()))
+                 - self.mesh.index(gaxes) * pool["k"].shape[1])
+        pos = ops.host_block(pos, (gaxes,))
+        x = ops.embed(ops.host_block(ids, ops.tokens_in_axes()),
+                      self.embed).to(self.cdt)
         # position-only work, shared by every layer
         idx = cm.paged_step_indices(table, pos, pool["k"].shape[2])
-        kv_map = cm.contiguous_kv_map(self.Hp, self.cfg.num_kv_heads,
-                                      x.device)
+        kv_map = self._kv_map(x.device)
         for i, blk in enumerate(self.blocks):
             pool_l = {"k": pool["k"][i], "v": pool["v"][i]}
             x = self._block_decode_paged(blk, x, pool_l, table, pos, ops,
@@ -245,8 +371,18 @@ class DenseLM(nn.Module):
         return self._logits(ops, self._final(ops, x))
 
 
-def last_token_at(x, lengths):
-    """[B, S, f] + true lengths [B] -> [B, 1, f] hidden states at position
-    lengths - 1 (the bucketed prefill right-pads prompts)."""
-    idx = (lengths.long() - 1)[:, None, None].expand(-1, 1, x.shape[-1])
-    return x.gather(1, idx)
+def last_token_at(ops, x, lengths):
+    """[B, S_loc, f] + true lengths [B] -> [B, 1, f] hidden states at
+    position lengths - 1, replicated over the sequence-sharding axes (the
+    bucketed prefill right-pads prompts): each seq shard contributes its
+    own row (zeros elsewhere) and one psum replicates it."""
+    idx = lengths.long() - 1
+    if ops.plan.seq_sharded:
+        idx = idx - ops.seq_shard_index() * x.shape[1]
+    valid = (idx >= 0) & (idx < x.shape[1])
+    safe = idx.clamp(0, x.shape[1] - 1)[:, None, None]
+    xl = x.gather(1, safe.expand(-1, 1, x.shape[-1]))
+    if not ops.plan.seq_sharded:
+        return xl
+    xl = torch.where(valid[:, None, None], xl, torch.zeros_like(xl))
+    return col.psum(ops.mesh, xl, ops.ctx.seq_shard_axes)

@@ -5,8 +5,8 @@ Counterpart of ``repro.runtime.steps``.  The reference builds jitted
 eagerly, so:
 
 - the serve steps are the model's own ``prefill`` and ``decode_paged``,
-  which the engine calls directly; only the reshard, which is no model
-  method, lives here (``paged_reshard``);
+  which the engine calls directly on every rank; only the reshard, which
+  is no model method, lives here (``paged_reshard``);
 - ``build_train_step`` is the one-device counterpart of the reference's
   flat-mesh train step (``build_train_step``, non-ZeRO): loss scaling,
   microbatch accumulation, unscale, global grad-norm clip, the cosine
@@ -21,19 +21,25 @@ from ..optim.adamw import adamw_update, cosine_lr
 
 
 @torch.no_grad()
-def paged_reshard(pool, pcache, tables):
-    """Scatter a prefill cache [L, B, S, Hkv, D] into the pool
-    [L, P, bs, Hkv, D] through per-request tables [B, S // bs] of block ids
-    (rows and tail blocks without a target point at the scratch block).
-    In place, where the reference returns the updated pool.  Block ids are
-    global ids, which at one KV group are also the local ids the model
-    reads."""
+def paged_reshard(pool, pcache, tables, *, block0: int = 0):
+    """Scatter a prefill cache [L, B, S, Hkv, D] into this rank's partition
+    of the pool [L, P, bs, Hkv, D] through per-request tables [B, S // bs]
+    of GLOBAL block ids (rows and tail blocks without a target point at a
+    scratch block).  The partition holds global ids ``block0 .. block0 +
+    P`` (this rank's KV group's); entries in other groups' partitions are
+    left to their ranks, as the reference's reshard scatters each block to
+    the device that holds it (``repro/runtime/steps.py``
+    ``build_paged_reshard`` and the group offset of
+    ``build_paged_decode_step``).  In place, where the reference returns
+    the updated pool."""
     L, B, S = pcache["k"].shape[:3]
-    idx = tables.reshape(-1).long()
+    P = pool["k"].shape[1]
+    idx = tables.reshape(-1).long() - block0
+    keep = (idx >= 0) & (idx < P)
     for leaf in ("k", "v"):
         dst = pool[leaf]
         src = pcache[leaf].reshape(L, B * (S // dst.shape[2]), *dst.shape[2:])
-        dst[:, idx] = src.to(dst.dtype)
+        dst[:, idx[keep]] = src[:, keep].to(dst.dtype)
 
 
 def build_train_step(model, shape, *, accum_steps: int = 1,

@@ -16,6 +16,15 @@ poisoned slot (re-prefill with the position-keyed sampler keeps its tokens),
 and a graceful decode-batch shrink after repeated pool-OOM preemption
 storms.  Not in this port yet (ROADMAP Queue A): the prefix cache, chunked
 prefill, speculative decoding, fault injection and elastic replans.
+
+Across ranks every rank runs this same host loop in lockstep (multi-
+controller): each holds the same scheduler and allocator state and calls
+the model's steps with the same host-layout inputs, and the steps return
+logits that are the same bytes on every rank (gathered, not reduced).  So
+every decision must come from replicated values only: the sampled ids (the
+sampler is keyed by (seed, position)), the non-finite guard, and the clock
+that deadlines and TTFT budgets read, which is rank 0's clock broadcast to
+all (``_now``); each rank's own clock stamps only its statistics.
 """
 from __future__ import annotations
 
@@ -26,8 +35,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..core.collectives import broadcast_scalar
 from ..core.device import resolve_device
-from ..core.ops import Plan
 from ..kernels.ops import effective_attn_impl
 from ..runtime.steps import paged_reshard
 from .kv_cache import PagedCacheConfig, PagedKVCache
@@ -119,6 +128,7 @@ class InferenceEngine:
                     f"EngineConfig.{knob} is not ported yet (ROADMAP Queue A, "
                     f"item A3)")
         self.model, self.cfg = model, cfg
+        self.mesh = model.mesh
         # injectable wall clock: deadline/TTFT tests drive a fake clock
         self.clock = clock or time.perf_counter
         self._oom_streak = 0     # consecutive steps with preemptions
@@ -126,9 +136,12 @@ class InferenceEngine:
         ctx = model.ctx
         # resolved attention data path ("pallas" = the Hopper kernels)
         self.attn_impl = effective_attn_impl(ctx.attn_impl, self.device)
-        self.plan = Plan.for_shape("decode", global_batch=cfg.n_slots,
-                                   batch_shards=ctx.batch_shards,
-                                   data=ctx.data)
+        self.plan = model.decode_plan(cfg.n_slots)
+        if self.plan.kind == "decode" and cfg.n_slots % ctx.batch_shards:
+            raise ValueError(
+                f"n_slots={cfg.n_slots} must divide over "
+                f"{ctx.batch_shards} token shards (or be < them to "
+                f"downgrade the plan)")
         self.cache = PagedKVCache(
             model, self.plan,
             PagedCacheConfig(num_blocks=cfg.num_blocks,
@@ -137,6 +150,8 @@ class InferenceEngine:
         self.sched = Scheduler(self.cache, cfg.n_slots)
         self.pool = self.cache.init_arrays()
         self._b_pre = cfg.prefill_batch or max(1, ctx.data)
+        if self._b_pre % ctx.data:
+            raise ValueError("prefill_batch must divide over data")
         self._seq_div = ctx.depth * ctx.rows    # sequence-shard divisor
         self.stats = EngineStats()
         self.requests = []
@@ -155,6 +170,12 @@ class InferenceEngine:
     def _tensor(self, a, dtype=torch.int32):
         return torch.from_numpy(np.asarray(a)).to(self.device, dtype)
 
+    def _now(self) -> float:
+        """The engine clock as every rank reads it: rank 0's reading,
+        broadcast (one value for the decisions that deadlines and TTFT
+        budgets take)."""
+        return broadcast_scalar(self.mesh, self.clock(), self.device)
+
     # ------------------------------------------------------------- requests
     def add_request(self, prompt, sampling: SamplingParams | None = None,
                     rid=None, deadline_s: float | None = None,
@@ -167,7 +188,7 @@ class InferenceEngine:
                 f"admission queue full ({self.cfg.max_waiting} waiting)")
         req = Request(prompt, sampling, eos_id=self.cfg.eos_id, rid=rid,
                       deadline_s=deadline_s, ttft_budget_s=ttft_budget_s,
-                      arrival_t=self.clock())
+                      arrival_t=self._now())
         self.requests.append(req)
         return self.sched.add(req)
 
@@ -186,9 +207,15 @@ class InferenceEngine:
 
     def _shed_expired(self) -> None:
         """Deadline / TTFT-budget enforcement: shed ONLY the expired
-        requests (waiting or running); survivors are untouched."""
-        now = self.clock()
-        for req in list(self.sched.waiting) + self.sched.running:
+        requests (waiting or running); survivors are untouched.  Reads the
+        clock (one broadcast across ranks) only when a request has a
+        budget."""
+        live = list(self.sched.waiting) + self.sched.running
+        if all(r.deadline_s is None and r.ttft_budget_s is None
+               for r in live):
+            return
+        now = self._now()
+        for req in live:
             age = now - req.arrival_t
             if req.deadline_s is not None and age > req.deadline_s:
                 self._fail(req, f"deadline ({req.deadline_s:g}s) exceeded")
@@ -254,7 +281,9 @@ class InferenceEngine:
                 tables[j, :nb_req] = req.block_ids[:nb_req]
             logits, pcache = self.model.prefill(self._tensor(tokens),
                                                 self._tensor(lengths))
-            paged_reshard(self.pool, pcache, self._tensor(tables))
+            paged_reshard(self.pool, pcache, self._tensor(tables),
+                          block0=self.cache.group
+                          * self.cache.blocks_per_group)
             del pcache
             temps, ks, ps, seeds = slot_arrays([r.sampling for r in chunk]
                                                + [SamplingParams()]

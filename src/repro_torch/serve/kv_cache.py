@@ -1,12 +1,17 @@
 """Paged KV cache: block allocator and pool tensors (port of
 ``repro.serve.kv_cache``).
 
-The pool is one pair of device tensors ``[L, P, bs, Hkv, D]`` in the
-compute dtype.  Block ids are ``group * blocks_per_group + local``; at the
-one-device layout there is a single KV group, so ids index the pool
-directly.  Local block 0 of every group is a scratch block: retired or
-empty batch slots point their whole table at it (fixed-shape math, the
-garbage is masked by per-request positions and overwritten on reuse).
+The pool's block axis is sharded over the decode plan's KV group axes
+(``kv_group_axes``: (data, depth, row) when the slots shard over every
+token axis) and its KV heads over col: each rank allocates its group's
+partition, one pair of device tensors ``[L, num_blocks / n_groups, bs,
+Hkv_loc, D]`` in the compute dtype.  Block ids are global, ``group *
+blocks_per_group + local``; the allocator below runs, the same, on every
+rank (multi-controller), and a slot's blocks all lie in its group's
+partition, so cache reads never cross ranks.  Local block 0 of every group
+is a scratch block: retired or empty batch slots point their whole table at
+it (fixed-shape math, the garbage is masked by per-request positions and
+overwritten on reuse).
 """
 from __future__ import annotations
 
@@ -99,13 +104,17 @@ class PagedKVCache:
                 f"{self.n_groups} KV groups")
         self.block_size = cfg.block_size
         self.max_blocks = -(-cfg.max_seq_len // cfg.block_size)
-        self.pool = BlockPool(self.n_groups,
-                              cfg.num_blocks // self.n_groups)
-        self.shape, self.dtype = model.paged_cache_shape(cfg.num_blocks,
-                                                         cfg.block_size)
+        self.blocks_per_group = cfg.num_blocks // self.n_groups
+        self.pool = BlockPool(self.n_groups, self.blocks_per_group)
+        # this rank's KV group: its partition holds global ids
+        # [group * blocks_per_group, (group + 1) * blocks_per_group)
+        self.group = model.mesh.index(self.group_axes)
+        self.shape, self.dtype = model.paged_cache_shape(
+            self.blocks_per_group, cfg.block_size)
 
     def init_arrays(self):
-        """Zero-initialised pool tensors on the model's device."""
+        """Zero-initialised tensors of this rank's partition of the pool on
+        the model's device."""
         return {leaf: torch.zeros(self.shape, dtype=self.dtype,
                                   device=self.model.device)
                 for leaf in ("k", "v")}

@@ -1,0 +1,484 @@
+"""Multi-rank checks of the port, one process per rank under ``torchrun``
+(counterpart of ``repro.testing.mdchecks``):
+
+    torchrun --nproc-per-node 4 -m repro_torch.testing.mdchecks \\
+        collectives summa_exact serve_engine [--device cpu]
+
+The mesh is [rows, cols, depth] = [2, 2, 1] at 4 ranks and [2, 2, 2] at 8
+(``--layout data,depth,rows,cols`` sets another).  Checks:
+
+- ``collectives``: each collective of ``core/collectives.py`` against a
+  numpy model of the same ranks' inputs, and the token rows embed's
+  reduce-scatter keeps against ``shard_tokens``;
+- ``summa_exact``: ``tesseract_matmul`` on the fused schedule (kernel #1)
+  and the ring (kernel #2) against the unsharded product, fp32 within
+  1e-5 of the product's largest entry (and bf16 within 1e-2 on the card);
+  on the card at yi-6b's per-rank shapes, and only the schedule's kernel
+  launched;
+- ``serve_engine``: the engine on the mesh against the one-rank port on the
+  same global weights, per case (fused and ring by default): greedy ids
+  identical, and the prefill and paged-decode logits of one request within
+  1e-4 of their largest magnitude; a case with ``"preempt": true`` must
+  preempt in every KV group; the loss refuses to run across ranks.
+  ``--cases FILE`` (JSON list; keys: name, schedule, arch, reduced, layers,
+  kv_heads, params (an .npz of the reference's global tree, from
+  ``flatten_params``), n_slots, block_size, num_blocks, max_seq_len,
+  preempt) gives other cases, and ``--out FILE`` receives every case's ids
+  (rank 0 writes).
+
+Every rank takes the same decisions from the same values, so a failed
+check fails on every rank at once: the error is reduced over the mesh
+before it is judged.  The card runs fp32 with TF32 off.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import itertools
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..configs.base import RunConfig
+from ..convert import params_from_jax, shard_params
+from ..core import collectives as col
+from ..core.api import ParallelContext
+from ..core.mesh import AXES, GROUP_AXES, Mesh, init_distributed
+from ..core.ops import Plan, make_ops
+from ..core.summa import _perm_shift, _perm_skew_a, _perm_skew_w
+from ..core.summa import tesseract_matmul
+from ..kernels import ops as kops
+from ..models.registry import build_model, get_arch, get_reduced
+
+LAYOUTS = {1: (1, 1, 1, 1), 4: (1, 1, 2, 2), 8: (1, 2, 2, 2)}
+
+# serve requests of the CPU cases: prompts in one prefill bucket (16) so
+# the reference engine the tests compare with compiles few steps
+PROMPT_LENS = (9, 12, 16, 10, 14, 11, 13, 15)
+NEW_TOKENS = (6, 10, 4, 8, 5, 12, 3, 7)
+
+
+class CheckFailed(AssertionError):
+    pass
+
+
+def _agree(mesh: Mesh, dev, ok: bool, msg: str) -> None:
+    """Raise on every rank if the check failed on any."""
+    bad = torch.tensor([0.0 if ok else 1.0], device=dev)
+    bad = col.pmax(mesh, bad, AXES)
+    if float(bad) > 0:
+        raise CheckFailed(f"rank {mesh.rank}: {msg}" if not ok else
+                          f"another rank failed ({msg})")
+
+
+def log(mesh: Mesh, *a):
+    if mesh.rank == 0:
+        print(*a, flush=True)
+
+
+# ----------------------------------------------------------- collectives
+
+def _members(mesh: Mesh, axes):
+    """Global ranks of this rank's group over ``axes``, in group order."""
+    return [mesh.rank_at(**dict(zip(axes, c)))
+            for c in itertools.product(*(range(mesh.sizes[a])
+                                         for a in axes))]
+
+
+def check_collectives(mesh: Mesh, dev, args):
+    rng = np.random.default_rng(0)
+    base = rng.standard_normal((mesh.size, 4, 6)).astype(np.float32)
+    x = torch.from_numpy(base[mesh.rank]).to(dev)
+    n_checked = 0
+
+    def same(got, want, what, tol=0.0):
+        nonlocal n_checked
+        want = np.asarray(want)
+        ok = tuple(got.shape) == want.shape and bool(np.allclose(
+            got.cpu().numpy(), want, rtol=tol, atol=tol))
+        _agree(mesh, dev, ok, f"{what}: got {tuple(got.shape)} want "
+                         f"{want.shape}")
+        n_checked += 1
+
+    def close(got, want, what):
+        # sums of 2 to 8 fp32 terms in the backend's order
+        same(got, want, what, tol=1e-6)
+
+    for axes in GROUP_AXES:
+        mem = _members(mesh, axes)
+        blocks = base[mem]
+        n, i = len(mem), mem.index(mesh.rank)
+        same(col.all_gather_inv(mesh, x, axes), blocks,
+             f"all_gather_inv stacked {axes}")
+        same(col.all_gather_inv(mesh, x, axes, axis=1),
+             np.moveaxis(blocks, 0, 1), f"all_gather_inv axis=1 {axes}")
+        same(col.all_gather_inv(mesh, x, axes, axis=1, tiled=True),
+             np.concatenate(list(blocks), axis=1),
+             f"all_gather_inv tiled axis=1 {axes}")
+        same(col.all_gather_cat(mesh, x, axes), np.concatenate(list(blocks)),
+             f"all_gather_cat {axes}")
+        close(col.psum(mesh, x, axes), blocks.sum(0), f"psum {axes}")
+        same(col.pmax(mesh, x, axes), blocks.max(0), f"pmax {axes}")
+        same(col.pmin(mesh, x, axes), blocks.min(0), f"pmin {axes}")
+        # reduce-scatter: member m's input holds n blocks along dim; member
+        # i keeps block i of the sum
+        big = rng.standard_normal((mesh.size, 4 * n, 6 * n)).astype(
+            np.float32)
+        for dim, cut in ((0, np.s_[:, :, :6]), (1, np.s_[:, :4, :])):
+            inp = big[cut]
+            total = inp[mem].sum(0)
+            m = total.shape[dim] // n
+            want = np.take(total, range(i * m, (i + 1) * m), axis=dim)
+            close(col.psum_scatter_dim(
+                mesh, torch.from_numpy(inp[mesh.rank]).to(dev), axes, dim),
+                want, f"psum_scatter_dim dim={dim} {axes}")
+        _agree(mesh, dev, col.axis_linear_index(mesh, axes) == i,
+               f"axis_linear_index {axes}")
+        # argmax over a vocab sharded over the group, with ties across
+        # shards: the smallest global index wins
+        vals = np.round(base[:, :, :3] * 2) / 2
+        got = col.distributed_argmax(
+            mesh, torch.from_numpy(vals[mesh.rank]).to(dev), i * 3, axes)
+        full = np.concatenate([vals[r] for r in mem], axis=-1)
+        same(got, full.argmax(-1).astype(np.int32),
+             f"distributed_argmax {axes}")
+    # the ring's shifts: over (row, col) for the skews, one axis for steps
+    q = mesh.sizes["col"]
+    for name, perm, axes in (("skew_a", _perm_skew_a(q), ("row", "col")),
+                             ("skew_w", _perm_skew_w(q), ("row", "col")),
+                             ("shift col", _perm_shift(q), ("col",)),
+                             ("shift row", _perm_shift(q), ("row",))):
+        grp = _members(mesh, axes)
+        src = [s for s, d in perm if d == grp.index(mesh.rank)][0]
+        same(col.ppermute(mesh, x, axes, perm), base[grp[src]],
+             f"ppermute {name}")
+    # embed's reduce-scatter over row keeps the token rows shard_tokens
+    # cuts: with table row v = v, each embedded row is its id
+    ctx = mesh.ctx
+    table = torch.arange(8 * ctx.tp, dtype=torch.float32, device=dev)
+    table = table[:, None].repeat(1, 2 * ctx.cols)
+    table = table.reshape(ctx.rows, -1, ctx.cols, 2)[
+        mesh.coords["row"], :, mesh.coords["col"]]
+    for plan, shape in ((Plan.for_shape("prefill"),
+                         (ctx.data, 4 * ctx.depth * ctx.rows)),
+                        (Plan.for_shape("decode"), (2 * ctx.batch_shards, 1))):
+        ops = make_ops(ctx, mesh, plan)
+        ids = torch.from_numpy(rng.integers(0, table.shape[0] * ctx.rows,
+                                            shape)).to(dev)
+        ids = ops.host_block(ids, ops.tokens_in_axes())
+        same(ops.embed(ids, table)[..., 0], ops.shard_tokens(ids).float()
+             .cpu().numpy(), f"embed vs shard_tokens ({plan.kind})")
+    t = col.broadcast_scalar(mesh, float(mesh.rank + 7), dev)
+    _agree(mesh, dev, t == 7.0, "broadcast_scalar")
+    log(mesh, f"PASS collectives ({n_checked} comparisons on "
+              f"{mesh.size} ranks)")
+
+
+# ----------------------------------------------------------- summa_exact
+
+def _summa_inputs(E, F, G, lead, dev):
+    """The global A [*lead, E, F] and W [F, G], the same on every rank."""
+    gen = torch.Generator(device="cpu").manual_seed(E * 7 + F * 3 + G)
+    A = torch.randn(*lead, E, F, generator=gen).to(dev)
+    W = (torch.randn(F, G, generator=gen) / F ** 0.5).to(dev)
+    return A, W
+
+
+def _summa_case(mesh, dev, ctx, A, W, dtype, tol):
+    """tesseract_matmul on this rank's blocks of A and W against its block
+    of the unsharded product A @ W (float64); returns (error / max |C|,
+    launches)."""
+    E, F = A.shape[-2:]
+    G = W.shape[1]
+    tok = ("data", "depth", "row")
+    Em, Fc = E // mesh.axis_size(tok), F // mesh.sizes["col"]
+    Fr, Gc = F // mesh.sizes["row"], G // mesh.sizes["col"]
+    e, ci, ri = mesh.index(tok), mesh.coords["col"], mesh.coords["row"]
+    rows = A[..., e * Em:(e + 1) * Em, :]
+    a_loc = rows[..., ci * Fc:(ci + 1) * Fc].to(dtype).contiguous()
+    w_loc = W[ri * Fr:(ri + 1) * Fr, ci * Gc:(ci + 1) * Gc].to(dtype)
+    # the product of the inputs as the kernel sees them (cast to dtype)
+    want = (rows.to(dtype).double()
+            @ W[:, ci * Gc:(ci + 1) * Gc].to(dtype).double())
+    kops.reset_launches()
+    got = tesseract_matmul(ctx, mesh, a_loc, w_loc.contiguous())
+    if got.device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(kops.LAUNCHES)
+    scale = float(col.pmax(mesh, want.abs().max().float(), AXES))
+    err = float(col.pmax(mesh, (got.double() - want).abs().max().float(),
+                         AXES))
+    ok = got.dtype == dtype and tuple(got.shape) == tuple(want.shape)
+    _agree(mesh, dev, ok and err <= tol * scale,
+           f"{ctx.matmul_schedule} {dtype} {tuple(A.shape)} x "
+           f"{tuple(W.shape)}: err {err:.3g} vs max {scale:.3g} (tol {tol})")
+    return err / scale, launches
+
+
+def check_summa_exact(mesh: Mesh, dev, args):
+    tok = mesh.axis_size(("data", "depth", "row"))
+    q = mesh.sizes["col"]
+    if dev.type == "cuda":
+        # yi-6b's per-rank blocks: prefill (1024 rows at q = 2) and decode
+        # (4 rows) through the gate/up (F 4096 -> G 11008) and the KV
+        # projection (G 512)
+        shapes = [(1024 * tok, 4096, 11008, ()), (4 * tok, 4096, 11008, ()),
+                  (4 * tok, 4096, 512, ()), (1000 * tok, 4096, 512, ())]
+        dtypes = ((torch.float32, 1e-5), (torch.bfloat16, 1e-2))
+    else:
+        shapes = [(12 * tok, 8 * q, 6 * q, ()), (3 * tok, 16 * q, 4 * q, (2,)),
+                  (tok, 4 * q, 2 * q, ())]
+        dtypes = ((torch.float32, 1e-5),)
+    worst = 0.0
+    for E, F, G, lead in shapes:
+        A, W = _summa_inputs(E, F, G, lead, dev)
+        for sched in ("fused", "ring"):
+            ctx = mesh.ctx.replace(matmul_schedule=sched)
+            for dtype, tol in dtypes:
+                rel, launches = _summa_case(mesh, dev, ctx, A, W, dtype,
+                                            tol)
+                worst = max(worst, rel)
+                if dev.type == "cuda":
+                    # fused: one launch of #1; ring: q launches of #2
+                    want = {"tesseract_mm": int(sched == "fused"),
+                            "tesseract_mm_stream": q * (sched == "ring")}
+                    got = {k: launches[k] for k in want}
+                    _agree(mesh, dev, got == want, f"{sched} launches {got}, "
+                                              f"want {want}")
+        del A, W
+    log(mesh, f"PASS summa_exact ({len(shapes)} shapes x fused/ring on "
+              f"{mesh.size} ranks; worst error {worst:.3g} of max |C|)")
+
+
+# ---------------------------------------------------------- serve_engine
+
+def _default_cases(device):
+    if device.type == "cuda":
+        common = dict(arch="yi-6b", layers=4, n_slots=8, block_size=16,
+                      num_blocks=1024, max_seq_len=2560,
+                      prompt_lens=[128, 512, 1000, 2000] * 2, new_tokens=16)
+    else:
+        common = dict(arch="yi-6b", reduced=True, n_slots=4, block_size=4,
+                      num_blocks=64, max_seq_len=64)
+    return [dict(common, name=s, schedule=s) for s in ("fused", "ring")]
+
+
+def _prompts(case, vocab):
+    lens = case.get("prompt_lens", PROMPT_LENS)
+    rng = np.random.default_rng(4)
+    return [rng.integers(0, min(vocab, 250) if case.get("reduced")
+                         else vocab, (n,)).tolist() for n in lens]
+
+
+def _new_tokens(case, n):
+    if "new_tokens" in case:
+        return [case["new_tokens"]] * n
+    return [NEW_TOKENS[i % len(NEW_TOKENS)] for i in range(n)]
+
+
+def _models(mesh, dev, case):
+    """(the model on the mesh, the one-rank model) on the same global
+    weights: the case's reference tree (``params``, an .npz of the
+    reference's global params) or the seed's."""
+    arch = (get_reduced(case["arch"]) if case.get("reduced")
+            else get_arch(case["arch"])).model
+    if "layers" in case:
+        arch = dataclasses.replace(arch, num_layers=case["layers"])
+    if "kv_heads" in case:
+        arch = dataclasses.replace(arch, num_kv_heads=case["kv_heads"])
+    run = RunConfig(param_dtype="float32", compute_dtype="float32",
+                    attn_impl="auto")
+    ctx = mesh.ctx.replace(matmul_schedule=case["schedule"],
+                           attn_impl="auto")
+    model = build_model(arch, ctx, run, device=dev, seed=0, mesh=mesh)
+    one = build_model(arch, ParallelContext(attn_impl="auto"), run,
+                      device=dev, seed=0)
+    if "params" in case:
+        with np.load(case["params"]) as z:
+            tree = _unflatten(dict(z))
+        params_from_jax(tree, one)
+        params_from_jax(shard_params(tree, arch, ctx, mesh.coords), model)
+    return model, one
+
+
+def _unflatten(flat):
+    tree = {}
+    for key, arr in flat.items():
+        parts = key.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = arr
+    return tree
+
+
+def flatten_params(tree, prefix=""):
+    """The reference's param tree as {"a/b": array} for an .npz file."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten_params(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def _run_engine(model, case, prompts, new, device):
+    from ..serve import EngineConfig, InferenceEngine, SamplingParams
+    eng = InferenceEngine(model, EngineConfig(
+        n_slots=case["n_slots"], block_size=case["block_size"],
+        num_blocks=case["num_blocks"], max_seq_len=case["max_seq_len"]),
+        device=device)
+    per_group = [0] * eng.cache.n_groups
+    preempt = eng.sched.preempt
+
+    def counted(req):
+        per_group[eng.sched.group_of_slot(req.slot)] += 1
+        preempt(req)
+
+    eng.sched.preempt = counted
+    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=n))
+            for p, n in zip(prompts, new)]
+    res = eng.run()
+    return [res[r.rid] for r in reqs], eng.stats, per_group
+
+
+def _logit_error(model, one, prompt, steps, bs, device):
+    """One request through the mesh model and the one-rank model: the
+    prefill at its bucket, then ``steps`` paged decode steps fed the mesh's
+    greedy ids.  Returns (max |logits(mesh) - logits(one rank)| / max
+    |logits|, whether the greedy ids agree).  The request sits in slot 0
+    (KV group 0); the mesh's other slots, one per KV group, hold scratch."""
+    from ..runtime.steps import paged_reshard
+    seq_div = model.ctx.depth * model.ctx.rows
+    unit = bs * seq_div
+    bucket = -(-len(prompt) // unit) * unit
+    nb = -(-(bucket + steps) // bs)
+    feed, outs = [], []
+    for m in (model, one):
+        # a prefill batch divides over data: the request, then copies
+        # whose blocks all go to the scratch block
+        n_pre, n_slots = m.ctx.data, m.ctx.batch_shards
+        toks = torch.zeros(n_pre, bucket, dtype=torch.int32, device=device)
+        toks[:, :len(prompt)] = torch.tensor(prompt, dtype=torch.int32)
+        lengths = torch.full((n_pre,), len(prompt), dtype=torch.int32,
+                             device=device)
+        shape, dt = m.paged_cache_shape(nb + 1, bs)
+        pool = {k: torch.zeros(shape, dtype=dt, device=device)
+                for k in ("k", "v")}
+        table = (torch.arange(n_slots, dtype=torch.int32, device=device)
+                 * (nb + 1))[:, None].repeat(1, nb)
+        table[0] = torch.arange(1, nb + 1, dtype=torch.int32)
+        logits, pcache = m.prefill(toks, lengths)
+        pre_table = torch.zeros(n_pre, bucket // bs, dtype=torch.int32,
+                                device=device)
+        pre_table[0] = table[0, :bucket // bs]
+        paged_reshard(pool, pcache, pre_table,
+                      block0=m.mesh.index(m.ctx.token_axes) * (nb + 1))
+        seq = [logits[0]]
+        for t in range(steps):
+            if m is model:
+                feed.append(int(seq[-1].argmax()))
+            ids = torch.zeros(n_slots, 1, dtype=torch.int32, device=device)
+            pos = torch.zeros(n_slots, dtype=torch.int32, device=device)
+            ids[0, 0], pos[0] = feed[t], len(prompt) + t
+            seq.append(m.decode_paged(pool, table, ids, pos)[0])
+        # the real vocab: the mesh pads it to a multiple of its model group
+        outs.append(torch.stack(seq)[:, :m.cfg.vocab_size])
+    got, want = outs
+    same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    return float((got - want).abs().max() / want.abs().max()), same
+
+
+def check_serve_engine(mesh: Mesh, dev, args):
+    cases = _default_cases(dev)
+    if args.cases:
+        with open(args.cases) as f:
+            cases = json.load(f)
+    out = {}
+    for case in cases:
+        t0 = time.perf_counter()
+        model, one = _models(mesh, dev, case)
+        prompts = _prompts(case, model.cfg.vocab_size)
+        new = _new_tokens(case, len(prompts))
+        kops.reset_launches()
+        got, stats, per_group = _run_engine(model, case, prompts, new, dev)
+        launches = dict(kops.LAUNCHES)
+        want, _, _ = _run_engine(one, case, prompts, new, dev)
+        _agree(mesh, dev, got == want, f"{case['name']}: mesh ids differ from "
+                                  f"one rank\n{got}\n{want}")
+        if case.get("preempt"):
+            _agree(mesh, dev, min(per_group) > 0,
+                   f"{case['name']}: preemptions per KV group {per_group}")
+        rel, same = _logit_error(model, one, prompts[0],
+                                 case.get("logit_steps", 4),
+                                 case["block_size"], dev)
+        _agree(mesh, dev, same and rel <= 1e-4,
+               f"{case['name']}: logits differ by {rel:.3g} of max (ids "
+               f"same: {same})")
+        if mesh.size > 1:
+            # training across ranks is not ported: the loss refuses
+            tokens = torch.zeros(1, 8, dtype=torch.int64, device=dev)
+            try:
+                model.loss({"tokens": tokens, "labels": tokens})
+                refused = False
+            except NotImplementedError as e:
+                refused = "ROADMAP" in str(e)
+            _agree(mesh, dev, refused, "DenseLM.loss ran across ranks")
+        out[case["name"]] = dict(ids=got, preemptions=per_group,
+                                 logit_rel_err=rel, launches=launches,
+                                 steps=stats.steps, tokens=stats.tokens)
+        log(mesh, f"  serve_engine {case['name']}: ids identical to one rank "
+                  f"({stats.tokens} tokens, {stats.steps} steps, "
+                  f"preemptions per group {per_group}); logits within "
+                  f"{rel:.2e} of max; launches {launches}; "
+                  f"{time.perf_counter() - t0:.1f} s")
+        del model, one
+    if args.out and mesh.rank == 0:
+        with open(args.out, "w") as f:
+            json.dump(out, f)
+    log(mesh, f"PASS serve_engine ({len(cases)} cases on {mesh.size} ranks)")
+
+
+CHECKS = {"collectives": check_collectives, "summa_exact": check_summa_exact,
+          "serve_engine": check_serve_engine}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("checks", nargs="+", choices=sorted(CHECKS))
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layout", default="",
+                    help="data,depth,rows,cols (default by world size)")
+    ap.add_argument("--cases", default="", help="JSON list of serve cases")
+    ap.add_argument("--out", default="", help="serve_engine ids (JSON)")
+    args = ap.parse_args(argv)
+    dev = init_distributed(args.device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    data, depth, rows, cols = (tuple(int(v) for v in args.layout.split(","))
+                               if args.layout else LAYOUTS[world])
+    ctx = ParallelContext(data=data, depth=depth, rows=rows, cols=cols)
+    mesh = Mesh(ctx)
+    log(mesh, f"mdchecks: {world} ranks, data={data} depth={depth} "
+              f"rows={rows} cols={cols}, {dev.type}"
+              + (f" ({torch.cuda.get_device_name(dev)})"
+                 if dev.type == "cuda" else ""))
+    try:
+        for name in args.checks:
+            CHECKS[name](mesh, dev, args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

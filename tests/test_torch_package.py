@@ -18,6 +18,10 @@ from repro_torch.kernels.flash_attention import (flash_dkv, flash_dkv_plain,
                                                  flash_fwd, flash_fwd_plain)
 from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_plain)
+from repro_torch.kernels.tesseract_mm import (tesseract_mm,
+                                              tesseract_mm_plain,
+                                              tesseract_mm_stream,
+                                              tesseract_mm_stream_plain)
 from repro_torch.models.registry import build_model, get_reduced
 from repro_torch.serve import EngineConfig, InferenceEngine
 
@@ -49,7 +53,8 @@ def test_engine_imports_with_jax_blocked():
             "sys.modules['repro'] = None; "
             "import repro_torch.serve.engine, repro_torch.launch.serve, "
             "repro_torch.runtime.train_loop, repro_torch.launch.train, "
-            "repro_torch.models.ssm, repro_torch.kernels.ssd; "
+            "repro_torch.models.ssm, repro_torch.kernels.ssd, "
+            "repro_torch.testing.mdchecks; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
@@ -87,12 +92,33 @@ def test_entry_points_default_to_cuda():
 
 
 def test_multi_device_layouts_raise():
+    """Layouts the port does not run raise naming their ROADMAP item: a seq
+    axis, megatron1d, and the ssm family across ranks; a mesh of several
+    ranks without torch.distributed asks for torchrun."""
     cfg = get_reduced("yi-6b").model
     run = RunConfig(param_dtype="float32", compute_dtype="float32")
-    for ctx in (ParallelContext(rows=2, cols=2), ParallelContext(data=2),
+    for ctx in (ParallelContext(seq=2),
                 ParallelContext(mode="megatron1d", cols=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(cfg, ctx, run, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(get_reduced("mamba2-1.3b").model,
+                    ParallelContext(rows=2, cols=2), run, device="cpu")
+    with pytest.raises(ValueError, match="torchrun"):
+        build_model(cfg, ParallelContext(rows=2, cols=2), run, device="cpu")
+
+
+def test_importing_mesh_starts_no_process_group():
+    code = ("import torch.distributed as dist; "
+            "import repro_torch.core.mesh, repro_torch.core.collectives, "
+            "repro_torch.core.summa, repro_torch.testing.mdchecks; "
+            "print(dist.is_initialized())")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
 
 
 def test_wrappers_take_plain_version_for_cpu_tensors():
@@ -123,8 +149,16 @@ def test_wrappers_take_plain_version_for_cpu_tensors():
                     flash_dkv_plain(q, k, v, dout, lse, delta,
                                     local_window=8)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+    a, b = t(2, 3, 8), t(2, 8, 5)
+    torch.testing.assert_close(tesseract_mm(a, b), tesseract_mm_plain(a, b),
+                               rtol=0, atol=0)
+    c = t(3, 5)
+    want = tesseract_mm_stream_plain(a[0], b[0], c)
+    torch.testing.assert_close(tesseract_mm_stream(a[0], b[0], c), want,
+                               rtol=0, atol=0)
     assert kops.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-                             "paged_attention": 0, "ssd_intra": 0}
+                             "paged_attention": 0, "ssd_intra": 0,
+                             "tesseract_mm": 0, "tesseract_mm_stream": 0}
 
 
 def test_attn_impl_resolution():
