@@ -6,17 +6,21 @@ Phases, in order (each prints its wall time); any failed check exits
 non-zero and prints no result:
 
 1. card: the GPU's name and power limit (nvidia-smi), and the build of the
-   CUDA kernels from src/repro_torch/csrc with nvcc for sm_90a;
+   CUDA kernels from src/repro_torch/csrc with nvcc for sm_90a; ptxas must
+   report no spills in the flash tensor-core kernels at D 64 and 128;
 2. kernels: each kernel against its plain PyTorch version on the card
    (flash forward, and the flash backward's dQ and dK/dV passes, at yi-6b
    and smollm-360m head shapes, Tq = Tk in {16, 1000, 2048}, q_start 0 /
    None, window 0 / 256, a fully masked case with exact-zero outputs and
    gradients, bf16 and fp32, and dK/dV launched twice giving the same
-   bits; paged decode with random tables, mixed positions with scratch
-   slots, window 0 / 64, a non-uniform kv_map, block sizes 8 / 16; the
-   SSD intra-chunk pass at (H, P, N) = (64, 64, 128) and (4, 16, 16),
-   Q in {256, 250, 143, 16, 1}, B in {1, 2}, nc in {1, 8}, mild and steep
-   decay, and launched twice giving the same bits);
+   bits; the forward's position-derived tile skip: q_start None with the
+   positions given and window 256, positions 37 past the keys, permuted
+   positions, and a first block whose rows are all masked; paged decode
+   with random tables, mixed positions with scratch slots, window 0 / 64,
+   a non-uniform kv_map, block sizes 8 / 16; the SSD intra-chunk pass at
+   (H, P, N) = (64, 64, 128) and (4, 16, 16), Q in {256, 250, 143, 16, 1},
+   B in {1, 2}, nc in {1, 8}, mild and steep decay, and launched twice
+   giving the same bits);
 3. summa kernels: the SUMMA contraction (kernel #1, tesseract_mm) and one
    ring step (kernel #2, tesseract_mm_stream) against their plain versions
    at yi-6b's per-rank projection shapes at q = 2 and at one rank (prefill
@@ -28,43 +32,48 @@ non-zero and prints no result:
 4. model parity: yi-6b at full width in fp32 (TF32 off), one 1000-token
    prefill and 8 paged decode steps through the kernels, then the same
    inputs teacher-forced through the plain versions: logits agree;
-5. ring: the same request with matmul_schedule="ring" (kernel #2 in every
+5. bf16 parity: yi-6b at full width in bf16, one prefill of 16 prompts of
+   85..1000 tokens through the flash kernel and through the plain
+   attention (#1 in both): logits within 5e-2 of their max, the same
+   argmax wherever the plain run's top-2 margin exceeds that;
+6. ring: the same request with matmul_schedule="ring" (kernel #2 in every
    projection) against "fused" (kernel #1): ids identical, logits within
    1e-4 of their max, only the schedule's kernel launched;
-6. training parity: smollm-360m at full width and depth in fp32 (TF32
+7. training parity: smollm-360m at full width and depth in fp32 (TF32
    off), B = 2, T = 1024: the loss and every gradient leaf through the
    kernels against the plain versions;
-7. ssm parity: mamba2-1.3b at full width and depth in fp32 (TF32 off),
+8. ssm parity: mamba2-1.3b at full width and depth in fp32 (TF32 off),
    B = 2, T = 1000 (the SSD kernel at Q = 250) and 8 greedy decode steps,
    then the same teacher-forced through the plain version: ids identical,
    every cache leaf within 1e-4 of its max;
-8. serve: yi-6b at full width in bf16 through InferenceEngine (8 slots,
+9. serve: yi-6b at full width in bf16 through InferenceEngine (8 slots,
    block 16, 2048 blocks): 16 greedy requests of 128/512/1000/2000 prompt
    tokens and 32 new tokens each; the kernels' launch counters are zeroed
    just before and read just after, and must show the kernels ran (7
    tesseract_mm launches per layer of every prefill and decode step);
-9. train: smollm-360m at full width and depth, fp32 params, bf16 compute,
+10. train: smollm-360m at full width and depth, fp32 params, bf16 compute,
    seq 2048 x batch 8, 10 steps through runtime/train_loop.train with the
    launch counters zeroed just before: finite losses starting near
    ln(vocab), no skipped step, 32 launches per step of each flash kernel
    and 7 x 32 of tesseract_mm; step time, tokens/s, peak memory, model
    FLOPs share and a profile;
-10. ssm serve: mamba2-1.3b at full width and depth in bf16, one prefill of
+11. ssm serve: mamba2-1.3b at full width and depth in bf16, one prefill of
    8 prompts x 2048 tokens (Q = 256, nc = 8) and 32 greedy decode steps
    with the launch counters zeroed just before: exactly 48 SSD launches
    and 4 x 48 tesseract_mm launches per prefill and decode step, in-vocab
    ids, finite states; prefill time, decode step p50/p99, tokens/s, peak
    memory and a profiled prefill;
-11. timings at the serve and train shapes: each kernel checked once more
+12. timings at the serve and train shapes: each kernel checked once more
    against its plain version on the exact inputs it times (flash at the
-   2048 bucket, paged with a 256-entry table over the 2048-block pool, the
-   backward passes and the forward at the train shape and at yi-6b's, the
-   SSD pass at the ssm serve shape, the SUMMA kernels at yi-6b's q = 2
-   per-rank and one-rank gate/up shapes), then kernel, plain version and
-   library call timed (CUDA events, median of 20 launches with a cold
-   L2), each beside the least time the card could take (bound); and the
-   host time of one projection (the SUMMA wrapper against torch.matmul);
-12. the last line: {"ok": true, "device": {...}}.
+   2048 bucket and at the train shape, paged with a 256-entry table over
+   the 2048-block pool, the backward passes and the forward at the train
+   shape and at yi-6b's, the SSD pass at the ssm serve shape, the SUMMA
+   kernels at yi-6b's q = 2 per-rank and one-rank gate/up shapes), then
+   kernel, plain version and library call timed (CUDA events, median of
+   20 launches with a cold L2), each beside the least time the card could
+   take (bound); and the host time of one projection (the SUMMA wrapper
+   against torch.matmul);
+13. the last line: {"ok": true, "device": {...}}.
 
 The four-card mesh is not a phase (this script needs one card): it runs
 under torchrun, ``python -m repro_torch.testing.mdchecks`` and
@@ -164,11 +173,23 @@ def phase_card():
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"({build.library_path().name})")
     report = build.library_path().with_suffix(".log")
+    spills, entry = {}, ""
     if report.exists():
         for line in report.read_text().splitlines():
             if any(k in line for k in ("registers", "spill", "==",
                                        "entry function")):
                 log("  ptxas:", line.strip())
+            if "entry function" in line:
+                entry = line.split("'")[1]
+            elif "spill stores" in line and "mma_kernel" in entry:
+                spills[entry] = line.strip()
+    # the flash tensor-core kernels hold their accumulators in registers:
+    # a spill would put them in local memory on every tile
+    check(len(spills) == 4 and all(
+        " 0 bytes spill stores, 0 bytes spill loads" in f" {v}"
+        for v in spills.values()),
+        f"flash mma kernels: expected four instances with no spills, got "
+        f"{spills}")
     return card
 
 
@@ -187,16 +208,26 @@ def _flash_case(gen, Hq, Hkv, D, T, q_start, window, dtype, q_pos=None):
 
 
 def _tols(dtype):
-    # fp32: summation order only; bf16 output: one to two bf16 ulps at
-    # |x| <= 1 (the arithmetic is fp32 on both sides); lse is fp32 always
+    # fp32 (the FMA route): summation order only.  bf16 output: one to two
+    # bf16 ulps at |x| <= 1.  The bf16 route's S = Q.K^T is exact bf16
+    # products summed in fp32 on the tensor cores, its softmax fp32, and
+    # P.V runs as lo.V + mid.V + hi.V with P cut exactly into three bf16
+    # parts, so only the tensor cores' fp32 sums set its distance from the
+    # plain version before the one rounding to bf16 (which then flips for
+    # ~0.2% of outputs, by one ulp: 2^-6 at |x| in [2, 4), above this
+    # limit, so the case data's few hundred such outputs must not flip).
+    # lse is fp32 always
     return (1e-4 if dtype == torch.float32 else 1e-2), 1e-3
 
 
 def _bwd_tol(dtype):
-    # relative to the largest |gradient| of the case: fp32 differs only in
-    # summation order (sums of up to ~6k fp32 terms per entry, ~1e-6
-    # relative), bf16 in one rounding of each output (2^-8 relative at
-    # most; the arithmetic is fp32 on both sides)
+    # relative to the largest |gradient| of the case: fp32 (the FMA
+    # routes) differs only in summation order (sums of up to ~6k fp32 terms
+    # per entry, ~1e-6 relative), bf16 in one rounding of each output
+    # (2^-8 relative at most).  In bf16 dQ is fp32 FMA; dK/dV runs its four
+    # products on the tensor cores with fp32 sums, S^T and dP^T from exact
+    # bf16 products, and P^T and dS^T split into hi + lo bf16 parts (~2^-18
+    # of each term) where they enter dV and dK
     return 1e-4 if dtype == torch.float32 else 1e-2
 
 
@@ -319,6 +350,7 @@ def phase_kernels():
             check(e_out <= tol_out and max_err(lse, r_lse) <= tol_lse,
                   f"flash masked case {dtype}: out err {e_out:.3g}")
             n += 1
+            n += _flash_skip_cases(gen, Hq, Hkv, D, dtype, worst)
             for bs in (8, 16):
                 for window in (0, 64):
                     e = _paged_case(gen, Hq, Hkv, D, bs, window, dtype)
@@ -331,6 +363,36 @@ def phase_kernels():
         f"flash {worst['flash_fwd']:.3g}, paged "
         f"{worst['paged_attention']:.3g}")
     return worst
+
+
+def _flash_skip_cases(gen, Hq, Hkv, D, dtype, worst):
+    """The bf16 route walks only the KV tiles its rows' positions can see
+    (csrc/flash_fwd.cu, kv_tile_range): q_start None with the positions
+    given and a window of 256 (the serve prefill's call, windowed), rows
+    37 positions past the keys (Tk = Tq), permuted positions, and positions
+    that start 100 before the keys with a window of 16, where the first
+    block's rows are all masked and it walks no tile.  Rows that see no key
+    must be exact zeros with lse = -1e25.  Returns the number of cases."""
+    T = 1000
+    tol_out, tol_lse = _tols(dtype)
+    ar = torch.arange(T, device="cuda", dtype=torch.int32)
+    perm = ar[torch.randperm(T, generator=gen, device="cuda")]
+    cases = (("positions, window 256", ar, 256), ("arange + 37", ar + 37, 0),
+             ("permuted", perm, 0), ("arange - 100, window 16", ar - 100, 16))
+    for label, q_pos, window in cases:
+        out, lse, r_out, r_lse = _flash_case(gen, Hq, Hkv, D, T, None, window,
+                                             dtype, q_pos=q_pos)
+        e_out, e_lse = max_err(out, r_out), max_err(lse, r_lse)
+        worst["flash_fwd"] = max(worst["flash_fwd"], e_out)
+        check(e_out <= tol_out and e_lse <= tol_lse,
+              f"flash {label} Hq={Hq} D={D} {dtype}: out err {e_out:.3g} "
+              f"lse err {e_lse:.3g}")
+        dead = q_pos < 0
+        check(bool((out[:, :, dead] == 0).all())
+              and bool((lse[:, :, dead] == -1e25).all()),
+              f"flash {label} {dtype}: rows that see no key are not exact "
+              f"zeros with lse -1e25")
+    return len(cases)
 
 
 def _paged_case(gen, Hq, Hkv, D, bs, window, dtype):
@@ -423,6 +485,66 @@ def phase_parity():
     check(all(np.isfinite(errs)) and max(errs) <= 1e-3,
           f"parity logits differ: {errs}")
     del model, kern, plain
+    torch.cuda.empty_cache()
+
+
+# |kernels - plain| <= BF16_MODEL_TOL * max |logit| in the bf16 model check:
+# both runs round every layer's activations to bf16, so an attention output
+# whose fp32 value sits near a bf16 rounding boundary can round one way in
+# one run and the other way in the other (one bf16 ulp, 2^-8 relative), and
+# that flip is carried through the later layers and the head; the kernels'
+# own fp32 arithmetic differs from the plain versions' by ~1e-6 relative
+BF16_MODEL_TOL = 5e-2
+
+
+def phase_bf16_parity():
+    """yi-6b at full width in bf16 through one prefill of 16 right-padded
+    prompts (the first 1000 tokens of one random sequence cut at 16 lengths
+    from 1000 down to 85, so the logits at each request's last position are
+    that sequence's at 16 positions), through the kernels (flash forward and
+    #1) and through attn_impl="jnp" (the plain attention, #1 in both runs):
+    logits within BF16_MODEL_TOL of their max, and the same argmax wherever
+    the plain run's top-2 margin exceeds that tolerance."""
+    from repro_torch.kernels import ops as kops
+    model = _model(ARCH, "bfloat16", "bfloat16", "pallas")
+    L, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    lengths = [1000 - 61 * i for i in range(16)]
+    rng = np.random.RandomState(9)
+    seq = rng.randint(0, vocab, 1000)
+    tokens = np.zeros((len(lengths), 1024), np.int32)
+    for b, n in enumerate(lengths):
+        tokens[b, :n] = seq[:n]
+    tokens = torch.from_numpy(tokens).cuda()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    logits = {}
+    for impl in ("pallas", "jnp"):
+        model.ctx = model.ctx.replace(attn_impl=impl)
+        kops.reset_launches()
+        logits[impl] = model.prefill(tokens, lens)[0][:, :vocab].float()
+        torch.cuda.synchronize()
+        want = (L if impl == "pallas" else 0, DENSE_MM * L)
+        got = (kops.LAUNCHES["flash_fwd"], kops.LAUNCHES["tesseract_mm"])
+        check(got == want, f"bf16 parity {impl} run launched (flash_fwd, "
+                           f"tesseract_mm) = {got}, want {want}")
+    kern, plain = logits["pallas"], logits["jnp"]
+    check(bool(torch.isfinite(kern).all()), "bf16 parity: non-finite logits")
+    scale = float(plain.abs().max())
+    err = max_err(kern, plain)
+    top2 = plain.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > BF16_MODEL_TOL * scale
+    same = kern.argmax(-1) == plain.argmax(-1)
+    log(f"bf16 parity: {ARCH} L={L} bf16, 16 prompts of {lengths[-1]}.."
+        f"{lengths[0]} tokens; max |kernels - plain| {err:.4g} of max "
+        f"|logit| {scale:.4g} ({err / scale:.3g}, tolerance "
+        f"{BF16_MODEL_TOL}); argmax identical at {int(same.sum())} of "
+        f"{len(lengths)} positions, {int(sure.sum())} with a top-2 margin "
+        f"above the tolerance, all identical there: "
+        f"{bool(same[sure].all())}")
+    check(err <= BF16_MODEL_TOL * scale, f"bf16 parity logits differ by "
+                                         f"{err:.3g} of {scale:.3g}")
+    check(bool(same[sure].all()), "bf16 parity: argmax differs where the "
+                                  "plain run's margin exceeds the tolerance")
+    del model, logits, kern, plain
     torch.cuda.empty_cache()
 
 
@@ -1172,12 +1294,57 @@ def _bound(flops, nbytes):
                                        else "bytes")
 
 
+def _time_fwd_train(worst):
+    """#3 at the train shape, as the train step calls it (q_start = 0):
+    checked against its plain version on the timed inputs, then timed
+    beside its plain version, SDPA (causal, GQA) and its bound; logged as a
+    second timing line of #3."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_fwd, flash_fwd_plain
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    bf = torch.bfloat16
+    tol_out, tol_lse = _tols(bf)
+    B, Hq, Hkv, T, D = TRAIN_BATCH, 15, 5, TRAIN_SEQ, 64
+    q, k, v = (randn(gen, B, Hq, T, D, dtype=bf),
+               randn(gen, B, Hkv, T, D, dtype=bf),
+               randn(gen, B, Hkv, T, D, dtype=bf))
+    out, lse = flash_fwd(q, k, v, causal=True, q_start=0)
+    torch.cuda.synchronize()
+    r_out, r_lse = flash_fwd_plain(q, k, v, causal=True, q_start=0)
+    e_out, e_lse = max_err(out, r_out), max_err(lse, r_lse)
+    check(e_out <= tol_out and e_lse <= tol_lse,
+          f"flash at the train shape: out err {e_out:.3g} lse err "
+          f"{e_lse:.3g}")
+    worst["flash_fwd"] = max(worst["flash_fwd"], e_out)
+    del out, lse, r_out, r_lse
+    ms = time_ms(lambda: flash_fwd(q, k, v, causal=True, q_start=0))
+    plain_ms = time_ms(lambda: flash_fwd_plain(q, k, v, causal=True,
+                                              q_start=0))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    pairs = T * (T + 1) // 2
+    bound_ms, bound_by = _bound(4 * D * pairs * Hq * B,
+                                2 * (2 * q.numel() + k.numel() + v.numel())
+                                + 4 * B * Hq * T)
+    log(json.dumps({"timing": "flash_fwd", "shape_of": "train",
+                    "shape": [B, Hq, Hkv, T, D], "dtype": "bfloat16",
+                    "q_start": 0, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms,
+                    "library": "scaled_dot_product_attention(is_causal, "
+                               "enable_gqa)",
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "tflops": 4 * D * pairs * Hq * B / ms / 1e9}))
+    del q, k, v
+    torch.cuda.empty_cache()
+
+
 def phase_timings(launches, counts, worst):
     """Kernel / plain / library times at the serve phase's shapes."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_fwd, flash_fwd_plain
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_plain)
+    _time_fwd_train(worst)   # first, so the row's max_abs_err counts it
     gen = torch.Generator(device="cuda").manual_seed(5)
     bf = torch.bfloat16
     rows = []
@@ -1217,7 +1384,8 @@ def phase_timings(launches, counts, worst):
         launches=launches["flash_fwd"], max_abs_err=worst["flash_fwd"],
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=library_ms))
-    log(json.dumps({"timing": "flash_fwd", "shape": [B, Hq, Hkv, T, D],
+    log(json.dumps({"timing": "flash_fwd", "shape_of": "serve",
+                    "shape": [B, Hq, Hkv, T, D],
                     "dtype": "bfloat16", "q_start": None, "ms": ms,
                     "plain_ms": plain_ms, "library_ms": library_ms,
                     "library": "scaled_dot_product_attention(is_causal)",
@@ -1381,6 +1549,7 @@ def main():
         worst.update(phase(phase_ssd_kernels))
         worst.update(phase(phase_summa_kernels))
         phase(phase_parity)
+        phase(phase_bf16_parity)
         ring_launches = phase(phase_summa_ring)
         phase(phase_train_parity)
         phase(phase_ssm_parity)

@@ -19,22 +19,48 @@
 //     load zeros, contribute p = 0 and are not stored).  A masked entry has
 //     p = 0 exactly, as exp(NEG_INF - lse) is in the reference, so a fully
 //     masked row (lse = -1e25) gives exact-zero gradients.
-//   * fp32 and bf16 inputs alike are staged as fp32, all sums are fp32 and
-//     the results are rounded once to the inputs' dtype.
+//   * all sums are fp32 and the results are rounded once to the inputs'
+//     dtype.  The entries pick a route by dtype.
 //
-// What bounds it: dQ does ~6*D FLOPs and dK/dV ~8*D FLOPs per causal
+// dK/dV, bf16 inputs: tensor cores (flash_dkv_mma_kernel).  4 warps, each
+// owning 16 kv rows of the BK = 64 tile; the dK and dV accumulators stay in
+// registers for the whole walk, and K and V stay in shared memory (their A
+// fragments are read by ldmatrix per k step: at D = 128 the accumulators
+// take 128 registers a thread and leave no room to hold them).  Q and dO
+// tiles (bf16, 16-byte-padded rows) and the tile's positions, lse and delta
+// come in by cp.async, double buffered across the flattened (head, q tile)
+// walk.  Per q tile, on mma.sync m16n8k16 (bf16 in, fp32 sums):
+//     S^T = K.Q^T, P^T = exp(scale S^T - lse[q]) under the mask;
+//     dV += P^T.dO;  dP^T = V.dO^T;  dS^T = P^T o (dP^T - delta[q]);
+//     dK += dS^T.Q (times scale once at the end).
+// P^T and dS^T stay fp32-grade, as the reference's are fp32: each is split
+// into hi = bf16(x) and lo = bf16(x - hi) and both go through the product
+// (~2^-18 of each term; the gradients are checked relative to their
+// largest entry, where this is far below one bf16 rounding), their C
+// fragments serving as A fragments in registers (mma.cuh), never in shared
+// memory.  The q tile is BQ = 64 at D = 64 and 32 at D = 128, where 64
+// would leave dK, dV, S^T and dP^T no room in 255 registers.  The grid is
+// linear with the kv tile slowest: under a causal mask the first kv tiles
+// walk the most q tiles, so they start first and the short walks fill the
+// tail.
+//
+// What bounds them: dQ does ~6*D FLOPs and dK/dV ~8*D FLOPs per causal
 // (q, k) pair per q head, far above the H100's ~295 FLOP/byte ridge, so
 // both are compute bound; the card's bf16 tensor-core peak (989 TFLOP/s) is
-// the bound they are measured against.  This first version runs the
-// products as fp32 FMA on the CUDA cores (67 TFLOP/s peak at most), like
-// flash_fwd.cu: 256 threads in 16 row groups x 16 lanes, each thread holds
-// a 4x4 tile of scores and of dO.V^T and a 4x(D/16) tile of each output in
-// registers, and the four operand tiles are staged in shared memory as fp32
-// with padded rows (no bank conflicts).  At D = 128 the dK/dV block uses
-// 165 KB of shared memory, so one block runs per SM.  Moving the products
-// to mma/wgmma with TMA-fed tiles is the next step and belongs to a later
-// change.
+// the bound they are measured against.  The dK/dV kernel's tensor cores run
+// mma.sync, short of wgmma's rate, with the split's 1.5x on both products
+// and the exp and masks on the CUDA cores beside them; TMA and wgmma are
+// its next step.  The dQ pass and fp32 dK/dV still run the first version:
+// fp32 FMA on the CUDA cores (67 TFLOP/s peak at most), 256 threads in 16
+// row groups x 16 lanes, each thread holding a 4x4 tile of scores and of
+// dO.V^T and a 4x(D/16) tile of each output in registers, the operand
+// tiles staged in shared memory as fp32 with padded rows (at D = 128 the
+// fp32 dK/dV block uses 165 KB, one block per SM).  dQ (#4) is the next
+// kernel to move onto these fragments: dQ += dS.K with dS split.
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -349,6 +375,245 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(BwdArgs a) {
   }
 }
 
+// ------------------------------------------------------- bf16: tensor cores
+constexpr int MNT = 128;  // dK/dV threads per block: 4 warps x 16 kv rows
+
+template <int D>
+constexpr int kDkvBQ = D == 128 ? 32 : 64;  // q rows per step (see the header)
+
+template <int D>
+constexpr size_t dkv_mma_smem_bytes() {
+  // K and V, two stages of Q and dO; two stages of qpos, lse and delta
+  return sizeof(__nv_bfloat16) * (2 * BK + 4 * kDkvBQ<D>) * (D + 8) +
+         sizeof(float) * 3 * 2 * kDkvBQ<D>;
+}
+
+template <int D>
+__global__ void __launch_bounds__(MNT) flash_dkv_mma_kernel(BwdArgs a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int QB = kDkvBQ<D>;
+  constexpr int LD = D + 8;   // padded shared-memory row (elements)
+  constexpr int KD = D / 16;  // k steps over the head dim
+  constexpr int NQ = QB / 8;  // n8 tiles of a warp's 16 x QB S^T and dP^T
+  constexpr int NO = D / 8;   // n8 tiles of a warp's 16 x D dK and dV
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);              // [BK][LD]
+  bf16* Vs = Ks + BK * LD;                                   // [BK][LD]
+  bf16* Qs = Vs + BK * LD;                                   // [2][QB][LD]
+  bf16* dOs = Qs + 2 * QB * LD;                              // [2][QB][LD]
+  int* qp_s = reinterpret_cast<int*>(dOs + 2 * QB * LD);     // [2][QB]
+  float* lse_s = reinterpret_cast<float*>(qp_s + 2 * QB);    // [2][QB]
+  float* delta_s = lse_s + 2 * QB;                           // [2][QB]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int group = lane >> 2, tig = lane & 3;
+  const int which = lane >> 3, r8 = lane & 7;  // ldmatrix: lanes 8i.. address
+                                               // the rows of matrix i
+  // the linear grid, kv tile slowest (see the header)
+  const int HB = gridDim.x / ((a.Tk + BK - 1) / BK);
+  const int kt = blockIdx.x / HB;
+  const int hk = blockIdx.x % a.Hkv, b = blockIdx.x % HB / a.Hkv;
+  const int g = a.Hq / a.Hkv;
+  const int k0 = kt * BK;
+  const size_t krow0 = (size_t)(b * a.Hkv + hk) * a.Tk;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+
+  repro::cp_async_rows<BK, D, MNT>(
+      Ks, static_cast<const bf16*>(a.k) + krow0 * D, k0, a.Tk);
+  repro::cp_async_rows<BK, D, MNT>(
+      Vs, static_cast<const bf16*>(a.v) + krow0 * D, k0, a.Tk);
+
+  // [lo, hi) q tiles that touch this kv tile (_q_bounds with these tiles)
+  const int nq = (a.Tq + QB - 1) / QB;
+  int lo = 0, hi = nq;
+  if (a.q_start >= 0 && a.causal) {
+    lo = min(max((k0 - a.q_start) / QB, 0), nq - 1);
+  }
+  if (a.q_start >= 0 && a.window > 0) {
+    const int last_kv = k0 + BK - 1;
+    hi = max(min((last_kv + a.window - 1 - a.q_start) / QB + 1, nq), lo + 1);
+  }
+  const int nqt = hi - lo, steps = g * nqt;  // (head, q tile), head outer
+
+  // step s's Q and dO tiles and row scalars into stage buf
+  auto stage = [&](int s, int buf) {
+    const int h = hk * g + s / nqt, q0 = (lo + s % nqt) * QB;
+    const size_t qrow0 = (size_t)(b * a.Hq + h) * a.Tq;
+    repro::cp_async_rows<QB, D, MNT>(Qs + buf * QB * LD, q + qrow0 * D, q0,
+                                     a.Tq);
+    repro::cp_async_rows<QB, D, MNT>(dOs + buf * QB * LD, dout + qrow0 * D,
+                                     q0, a.Tq);
+    for (int r = threadIdx.x; r < QB; r += MNT) {
+      const int row = q0 + r;
+      const bool ok = row < a.Tq;
+      repro::cp_async4(qp_s + buf * QB + r, ok ? a.qpos + row : a.qpos, ok);
+      repro::cp_async4(lse_s + buf * QB + r, ok ? a.lse + qrow0 + row : a.lse,
+                       ok);
+      repro::cp_async4(delta_s + buf * QB + r,
+                       ok ? a.delta + qrow0 + row : a.delta, ok);
+    }
+  };
+  stage(0, 0);
+  repro::cp_async_commit();  // K, V and step 0
+
+  // this thread's kv rows: kr0 (registers 0, 1 of a fragment), kr0 + 8
+  const int kr0 = k0 + warp * 16 + group;
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int d = 0; d < NO; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.f;
+
+  for (int s = 0; s < steps; ++s) {
+    const int cur = s & 1;
+    repro::cp_async_wait<0>();  // step s has landed
+    __syncthreads();  // ... for every thread, and step s - 1 is consumed,
+                      // so its stage takes step s + 1 while s computes
+    if (s + 1 < steps) stage(s + 1, cur ^ 1);
+    repro::cp_async_commit();
+    const int q0 = (lo + s % nqt) * QB;
+    const bf16* Qc = Qs + cur * QB * LD;
+    const bf16* dOc = dOs + cur * QB * LD;
+    const int* qp = qp_s + cur * QB;
+    const float* lse = lse_s + cur * QB;
+    const float* delta = delta_s + cur * QB;
+
+    // S^T = K.Q^T: Q is stored [q][d], the B operand's column-major layout
+    float st[NQ][4];
+#pragma unroll
+    for (int nt = 0; nt < NQ; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KD; ++ks) {
+      uint32_t kf[4];
+      repro::ldmatrix_x4(kf, Ks + (warp * 16 + (which & 1) * 8 + r8) * LD +
+                                 ks * 16 + (which >> 1) * 8);
+#pragma unroll
+      for (int np = 0; np < NQ / 2; ++np) {
+        uint32_t qb[4];
+        repro::ldmatrix_x4(qb, Qc + (np * 16 + (which >> 1) * 8 + r8) * LD +
+                                   ks * 16 + (which & 1) * 8);
+        repro::mma_bf16(st[2 * np], kf, qb[0], qb[1]);
+        repro::mma_bf16(st[2 * np + 1], kf, qb[2], qb[3]);
+      }
+    }
+
+    // a tile that every (kv, q) pair sees needs no mask
+    int pmin = qp[lane % QB], pmax = pmin;
+    if (QB > 32) {
+      pmin = min(pmin, qp[lane + 32]);
+      pmax = max(pmax, qp[lane + 32]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      pmin = min(pmin, __shfl_xor_sync(0xffffffffu, pmin, off));
+      pmax = max(pmax, __shfl_xor_sync(0xffffffffu, pmax, off));
+    }
+    const bool whole = q0 + QB <= a.Tq && k0 + BK <= a.Tk &&
+                       (!a.causal || pmin >= k0 + BK - 1) &&
+                       (a.window <= 0 || k0 > pmax - a.window);
+
+    // P^T = exp(scale S^T - lse[q]); a masked entry is exactly 0
+#pragma unroll
+    for (int nt = 0; nt < NQ; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = nt * 8 + 2 * tig + (e & 1);
+        float p = __expf(st[nt][e] * a.scale - lse[c]);
+        if (!whole && !(q0 + c < a.Tq && visible(a, qp[c], kr0 + (e >> 1) * 8)))
+          p = 0.f;
+        st[nt][e] = p;
+      }
+
+    // dV += P^T.dO, P^T = hi + lo: S^T tiles 2 kc and 2 kc + 1 are the A
+    // fragment over q rows 16 kc .. 16 kc + 15
+#pragma unroll
+    for (int kc = 0; kc < QB / 16; ++kc) {
+      uint32_t ph[4], pl[4];
+      repro::split_bf16x2(st[2 * kc][0], st[2 * kc][1], ph[0], pl[0]);
+      repro::split_bf16x2(st[2 * kc][2], st[2 * kc][3], ph[1], pl[1]);
+      repro::split_bf16x2(st[2 * kc + 1][0], st[2 * kc + 1][1], ph[2], pl[2]);
+      repro::split_bf16x2(st[2 * kc + 1][2], st[2 * kc + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int dp = 0; dp < NO / 2; ++dp) {
+        uint32_t ob[4];
+        repro::ldmatrix_x4_trans(ob, dOc + (kc * 16 + (which & 1) * 8 + r8) * LD
+                                         + dp * 16 + (which >> 1) * 8);
+        repro::mma_bf16(dv[2 * dp], ph, ob[0], ob[1]);
+        repro::mma_bf16(dv[2 * dp], pl, ob[0], ob[1]);
+        repro::mma_bf16(dv[2 * dp + 1], ph, ob[2], ob[3]);
+        repro::mma_bf16(dv[2 * dp + 1], pl, ob[2], ob[3]);
+      }
+    }
+
+    // dP^T = V.dO^T, then dS^T = P^T o (dP^T - delta[q]) in place
+    float ds[NQ][4];
+#pragma unroll
+    for (int nt = 0; nt < NQ; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds[nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KD; ++ks) {
+      uint32_t vf[4];
+      repro::ldmatrix_x4(vf, Vs + (warp * 16 + (which & 1) * 8 + r8) * LD +
+                                 ks * 16 + (which >> 1) * 8);
+#pragma unroll
+      for (int np = 0; np < NQ / 2; ++np) {
+        uint32_t ob[4];
+        repro::ldmatrix_x4(ob, dOc + (np * 16 + (which >> 1) * 8 + r8) * LD +
+                                   ks * 16 + (which & 1) * 8);
+        repro::mma_bf16(ds[2 * np], vf, ob[0], ob[1]);
+        repro::mma_bf16(ds[2 * np + 1], vf, ob[2], ob[3]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < NQ; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[nt][e] = st[nt][e] * (ds[nt][e] - delta[nt * 8 + 2 * tig + (e & 1)]);
+
+    // dK += dS^T.Q, dS^T = hi + lo
+#pragma unroll
+    for (int kc = 0; kc < QB / 16; ++kc) {
+      uint32_t dh[4], dl[4];
+      repro::split_bf16x2(ds[2 * kc][0], ds[2 * kc][1], dh[0], dl[0]);
+      repro::split_bf16x2(ds[2 * kc][2], ds[2 * kc][3], dh[1], dl[1]);
+      repro::split_bf16x2(ds[2 * kc + 1][0], ds[2 * kc + 1][1], dh[2], dl[2]);
+      repro::split_bf16x2(ds[2 * kc + 1][2], ds[2 * kc + 1][3], dh[3], dl[3]);
+#pragma unroll
+      for (int dp = 0; dp < NO / 2; ++dp) {
+        uint32_t qb[4];
+        repro::ldmatrix_x4_trans(qb, Qc + (kc * 16 + (which & 1) * 8 + r8) * LD
+                                         + dp * 16 + (which >> 1) * 8);
+        repro::mma_bf16(dk[2 * dp], dh, qb[0], qb[1]);
+        repro::mma_bf16(dk[2 * dp], dl, qb[0], qb[1]);
+        repro::mma_bf16(dk[2 * dp + 1], dh, qb[2], qb[3]);
+        repro::mma_bf16(dk[2 * dp + 1], dl, qb[2], qb[3]);
+      }
+    }
+  }
+  repro::cp_async_wait<0>();
+
+  bf16* gk = static_cast<bf16*>(a.dk) + krow0 * D;
+  bf16* gv = static_cast<bf16*>(a.dv) + krow0 * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = kr0 + 8 * i;
+    if (row >= a.Tk) continue;
+#pragma unroll
+    for (int d = 0; d < NO; ++d) {
+      const size_t at = (size_t)row * D + d * 8 + 2 * tig;
+      *reinterpret_cast<__nv_bfloat162*>(gk + at) = __floats2bfloat162_rn(
+          dk[d][2 * i] * a.scale, dk[d][2 * i + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(gv + at) =
+          __floats2bfloat162_rn(dv[d][2 * i], dv[d][2 * i + 1]);
+    }
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const BwdArgs& a, int B, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
@@ -373,9 +638,28 @@ cudaError_t launch_dkv(const BwdArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dkv_mma(const BwdArgs& a, int B, cudaStream_t stream) {
+  constexpr size_t smem = dkv_mma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_dkv_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Tk + BK - 1) / BK * a.Hkv * B);
+  flash_dkv_mma_kernel<D><<<grid, MNT, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// dQ: the FMA kernel for both dtypes; dK/dV: FMA for fp32, tensor cores for
+// bf16 (q, k, v, dout 16-byte aligned, as cp.async reads them; the wrapper
+// checks)
 template <typename T, int D>
 cudaError_t launch(const BwdArgs& a, int B, bool dkv, cudaStream_t stream) {
-  return dkv ? launch_dkv<T, D>(a, B, stream) : launch_dq<T, D>(a, B, stream);
+  if (!dkv) return launch_dq<T, D>(a, B, stream);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    return launch_dkv_mma<D>(a, B, stream);
+  else
+    return launch_dkv<T, D>(a, B, stream);
 }
 
 // picks the (dtype, head dim) instance; anything else is refused

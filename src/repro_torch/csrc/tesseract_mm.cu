@@ -42,8 +42,17 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::ldmatrix_x4;
+using repro::ldmatrix_x4_trans;
+using repro::mma_bf16;
+using repro::smem_u32;
 
 // ---------------------------------------------------------------- bf16
 constexpr int BM = 128, BN = 128, BK = 32;
@@ -74,49 +83,6 @@ __device__ __forceinline__ void store_c(const MmArgs& p, size_t i, float v) {
     static_cast<__nv_bfloat16*>(p.c)[i] = __float2bfloat16_rn(v);
   else
     static_cast<float*>(p.c)[i] = v;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  // src-size 0 zero-fills the 16 bytes without reading src
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-                   "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Stage the A tile [BM x BK] of (t, f0) and the B tile [BK x BN] into

@@ -8,7 +8,9 @@ Counterpart of ``repro/kernels/flash_attention.py``: ``flash_fwd`` of
 ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``; each ``*_plain`` function
 is the same function in straightforward PyTorch (the full fp32 score
 matrix), used by the CPU tests, by ``attn_impl="jnp"`` and by
-``chip_smoke.py``'s comparison.
+``chip_smoke.py``'s comparison.  A bf16 CUDA tensor reaches the
+kernels' tensor-core routes (the forward and dK/dV), fp32 their FMA routes;
+``flash_kv_tiles`` mirrors the KV tile range the bf16 forward walks.
 
 Contract of all (the reference's): q [B, Hq, Tq, D], k/v [B, Hkv, Tk, D]
 with Hq = g * Hkv (q head h reads kv head h // g); KV rows sit at positions
@@ -57,6 +59,36 @@ def _q_positions(q_pos, q_start, Tq, device):
         return (q_start or 0) + torch.arange(Tq, dtype=torch.int32,
                                              device=device)
     return q_pos.to(device=device, dtype=torch.int32)
+
+
+FWD_TILE = 64    # q rows and kv rows of a tile of flash_fwd.cu's bf16 route
+
+
+def flash_kv_tiles(q_pos, Tk, bq=FWD_TILE, bk=FWD_TILE, causal=True,
+                   window=0):
+    """[(lo, hi)] per q tile of ``bq`` rows: the KV tiles of ``bk`` columns
+    that ``csrc/flash_fwd.cu``'s bf16 route walks.  A plain mirror of that
+    kernel's ``kv_tile_range``, for the tests.
+
+    The range comes from the tile's own positions (rows past Tq continue
+    the sequence, as the kernel pads them): causal keeps the tiles whose
+    first column is <= the largest position, a window the tiles whose last
+    column is > the smallest position - window, and every tile starts below
+    Tk.  Every tile outside the range is masked for every row of the q tile,
+    so skipping it changes no bit.  An empty range is (lo, lo)."""
+    pos = [int(p) for p in q_pos]
+    nq, nk = -(-len(pos) // bq), -(-Tk // bk)
+    pos += [pos[-1] + 1 + i for i in range(nq * bq - len(pos))]
+    tiles = []
+    for i in range(nq):
+        rows = pos[i * bq:(i + 1) * bq]
+        lo, hi = 0, nk
+        if causal:
+            hi = min(hi, max(max(rows) // bk + 1, 0))
+        if window > 0:
+            lo = max(lo, (min(rows) - window + 1) // bk)
+        tiles.append((lo, max(lo, hi)))
+    return tiles
 
 
 # ---------------------------------------------------------------- plain
@@ -159,6 +191,14 @@ def _check(what, q, k, v, *, q_start):
     if q_start is not None and q_start < 0:
         raise ValueError(f"{what}: q_start must be >= 0 or None, "
                          f"got {q_start}")
+    _check_aligned(what, q, k, v)
+
+
+def _check_aligned(what, *ts):
+    # the bf16 kernels copy 16-byte chunks of each row with cp.async
+    if ts[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{what}: bfloat16 inputs must start on a 16-byte "
+                         f"boundary")
 
 
 def _check_bwd(what, q, dout, lse, delta):
@@ -172,6 +212,7 @@ def _check_bwd(what, q, dout, lse, delta):
             raise ValueError(f"{what}: {name} must be a contiguous "
                              f"{tuple(q.shape[:3])} float32 tensor on "
                              f"{q.device}")
+    _check_aligned(what, dout)
 
 
 def _launch_args(what, q, k, q_pos, q_start, causal, local_window,
