@@ -7,28 +7,32 @@ non-zero and prints no result:
 
 1. card: the GPU's name and power limit (nvidia-smi), and the build of the
    CUDA kernels from src/repro_torch/csrc with nvcc for sm_90a; ptxas must
-   report no spills in the flash tensor-core kernels at D 64 and 128;
+   report no spills in the tensor-core kernels (the flash forward, dQ and
+   dK/dV at D 64 and 128, and the SUMMA kernel's wgmma route), and that
+   route's SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG);
 2. kernels: each kernel against its plain PyTorch version on the card
    (flash forward, and the flash backward's dQ and dK/dV passes, at yi-6b
    and smollm-360m head shapes, Tq = Tk in {16, 1000, 2048}, q_start 0 /
    None, window 0 / 256, a fully masked case with exact-zero outputs and
-   gradients, bf16 and fp32, and dK/dV launched twice giving the same
-   bits; the forward's position-derived tile skip: q_start None with the
-   positions given and window 256, positions 37 past the keys, permuted
-   positions, and a first block whose rows are all masked; paged decode
-   with random tables, mixed positions with scratch slots, window 0 / 64,
-   a non-uniform kv_map, block sizes 8 / 16; the SSD intra-chunk pass at
-   (H, P, N) = (64, 64, 128) and (4, 16, 16), Q in {256, 250, 143, 16, 1},
-   B in {1, 2}, nc in {1, 8}, mild and steep decay, and launched twice
+   gradients, bf16 and fp32, and dQ and dK/dV each launched twice giving
+   the same bits; the forward's position-derived tile skip: q_start None
+   with the positions given and window 256, positions 37 past the keys,
+   permuted positions, and a first block whose rows are all masked; paged
+   decode with random tables, mixed positions with scratch slots, window 0
+   / 64, a non-uniform kv_map, block sizes 8 / 16; the SSD intra-chunk pass
+   at (H, P, N) = (64, 64, 128) and (4, 16, 16), Q in {256, 250, 143, 16,
+   1}, B in {1, 2}, nc in {1, 8}, mild and steep decay, and launched twice
    giving the same bits);
 3. summa kernels: the SUMMA contraction (kernel #1, tesseract_mm) and one
    ring step (kernel #2, tesseract_mm_stream) against their plain versions
    at yi-6b's per-rank projection shapes at q = 2 and at one rank (prefill
    and decode rows), at smollm-360m's train projections and mamba2-1.3b's
-   prefill and decode projections (partial 128-wide G tiles), ragged E in
-   {1, 3, 1000}, T in {1, 2, 4}, F and G not multiples of 8, bf16 and
-   fp32: a repeat launch gives the same bits, the bf16 epilogue gives the
-   fp32 C rounded, T launches of #2 agree with #1;
+   prefill and decode projections (partial G tiles), ragged E in {1, 3,
+   1000}, T in {1, 2, 4}, the wgmma route's edges (E in {17, 64, 65, 129,
+   1000}, F 2000, G in {64, 320, 960, 5504}, F and G below 64), bases 16
+   but not 128 bytes past an allocation, F and G not multiples of 8, bf16
+   and fp32: a repeat launch gives the same bits, the bf16 epilogue gives
+   the fp32 C rounded, T launches of #2 agree with #1;
 4. model parity: yi-6b at full width in fp32 (TF32 off), one 1000-token
    prefill and 8 paged decode steps through the kernels, then the same
    inputs teacher-forced through the plain versions: logits agree;
@@ -71,8 +75,10 @@ non-zero and prints no result:
    kernels at yi-6b's q = 2 per-rank and one-rank gate/up shapes), then
    kernel, plain version and library call timed (CUDA events, median of
    20 launches with a cold L2), each beside the least time the card could
-   take (bound); and the host time of one projection (the SUMMA wrapper
-   against torch.matmul);
+   take (bound); the bf16 outputs of dQ whose rounding differs from the
+   plain version's; and the host time of one projection (the SUMMA
+   wrapper against torch.matmul, and on the wgmma route, whose launch
+   encodes two TMA descriptors);
 13. the last line: {"ok": true, "device": {...}}.
 
 The four-card mesh is not a phase (this script needs one card): it runs
@@ -115,6 +121,10 @@ MM_TOL = 1e-4
 DENSE_MM = 7                 # SUMMA contractions per dense layer: wq, wk,
                              # wv, wo, gate, up, down
 SSM_MM = 4                   # per ssm layer: w_z, w_x, w_dt, w_out
+# tensor-core kernel -> instances (D 64 and 128 for flash) in the build
+TENSOR_CORE_KERNELS = {"flash_fwd_mma_kernel": 2, "flash_dkv_mma_kernel": 2,
+                       "flash_dq_mma_kernel": 2,
+                       "tesseract_mm_wgmma_kernel": 2}   # C loaded or not
 
 
 class CheckFailed(Exception):
@@ -183,13 +193,25 @@ def phase_card():
                 entry = line.split("'")[1]
             elif "spill stores" in line and "mma_kernel" in entry:
                 spills[entry] = line.strip()
-    # the flash tensor-core kernels hold their accumulators in registers:
-    # a spill would put them in local memory on every tile
-    check(len(spills) == 4 and all(
-        " 0 bytes spill stores, 0 bytes spill loads" in f" {v}"
-        for v in spills.values()),
-        f"flash mma kernels: expected four instances with no spills, got "
-        f"{spills}")
+    # the tensor-core kernels hold their accumulators in registers: a spill
+    # would put them in local memory on every tile
+    found = {k: sum(k in e for e in spills) for k in TENSOR_CORE_KERNELS}
+    check(found == TENSOR_CORE_KERNELS and len(spills) == sum(found.values())
+          and all(" 0 bytes spill stores, 0 bytes spill loads" in f" {v}"
+                  for v in spills.values()),
+          f"tensor-core kernels: expected {TENSOR_CORE_KERNELS} instances "
+          f"with no spills, got {spills}")
+    # the prefill route of #1/#2 issues wgmma (HGMMA) on TMA loads (UTMALDG)
+    sass = subprocess.run(
+        [str(pathlib.Path(build._nvcc()).parent / "cuobjdump"), "-sass",
+         str(build.library_path())], capture_output=True, text=True,
+        check=True).stdout
+    ops = [{op: f.count(op) for op in ("HGMMA", "UTMALDG")}
+           for f in sass.split("Function : ")
+           if "tesseract_mm_wgmma_kernel" in f.split("\n", 1)[0]]
+    log(f"  sass of tesseract_mm_wgmma_kernel's instances: {ops}")
+    check(len(ops) == 2 and all(all(o.values()) for o in ops),
+          f"tesseract_mm_wgmma_kernel: no HGMMA / UTMALDG in its SASS {ops}")
     return card
 
 
@@ -224,10 +246,10 @@ def _bwd_tol(dtype):
     # relative to the largest |gradient| of the case: fp32 (the FMA
     # routes) differs only in summation order (sums of up to ~6k fp32 terms
     # per entry, ~1e-6 relative), bf16 in one rounding of each output
-    # (2^-8 relative at most).  In bf16 dQ is fp32 FMA; dK/dV runs its four
-    # products on the tensor cores with fp32 sums, S^T and dP^T from exact
-    # bf16 products, and P^T and dS^T split into hi + lo bf16 parts (~2^-18
-    # of each term) where they enter dV and dK
+    # (2^-8 relative at most).  In bf16 both passes run on the tensor cores
+    # with fp32 sums: S (S^T) and dP (dP^T) from exact bf16 products, and
+    # P^T and dS (dS^T) split into hi + lo bf16 parts (~2^-18 of each term)
+    # where they enter dV, dQ and dK
     return 1e-4 if dtype == torch.float32 else 1e-2
 
 
@@ -303,14 +325,16 @@ def phase_bwd_kernels():
             worst["flash_dq"] = max(worst["flash_dq"], e_dq)
             worst["flash_dkv"] = max(worst["flash_dkv"], e_dkv)
             n += 1
-    # dK/dV has no atomics: two launches give the same bits
-    from repro_torch.kernels.flash_attention import flash_dkv
+    # dQ and dK/dV have no atomics: two launches give the same bits
+    from repro_torch.kernels.flash_attention import flash_dkv, flash_dq
     args, _ = _bwd_inputs(gen, 2, 15, 5, 64, 2048, torch.bfloat16)
     a, b = flash_dkv(*args), flash_dkv(*args)
+    dq_a, dq_b = flash_dq(*args), flash_dq(*args)
     torch.cuda.synchronize()
     check(all(torch.equal(x, y) for x, y in zip(a, b)),
           "flash_dkv is not deterministic run to run")
-    log(f"bwd kernel phase: {n} cases pass, dK/dV deterministic; max "
+    check(torch.equal(dq_a, dq_b), "flash_dq is not deterministic run to run")
+    log(f"bwd kernel phase: {n} cases pass, dQ and dK/dV deterministic; max "
         f"|kernel - plain| dq {worst['flash_dq']:.3g}, dkv "
         f"{worst['flash_dkv']:.3g}")
     return worst
@@ -952,15 +976,28 @@ def _path_mm_shapes():
                for F, G in sorted(ssm)])
 
 
+def _offset_copy(t, nbytes=16):
+    """t copied into a view that starts ``nbytes`` past a fresh allocation:
+    16-byte aligned, not 128-byte aligned."""
+    n = nbytes // t.element_size()
+    buf = torch.empty(t.numel() + n, dtype=t.dtype, device=t.device)
+    return buf[n:].view(t.shape).copy_(t)
+
+
 def phase_summa_kernels():
     """Kernels #1 and #2 against their plain versions: yi-6b's per-rank
     projection shapes at q = 2 (T 2; E 1024 and 4; F x G of wq/wo, wk/wv,
     gate/up, down) and at one rank (T 1; E 2048 and 8), the train and ssm
     paths' shapes (``_path_mm_shapes``), ragged E in {1, 3, 1000} at T in
-    {1, 2, 4}, F x G = 100 x 60 (element-wise tile loads), bf16 and fp32;
-    a repeat launch gives the same bits, the bf16 epilogue gives the fp32
-    C's bits rounded, and T launches of #2 agree with #1.  Returns the
-    largest errors."""
+    {1, 2, 4}, the wgmma route's edges (E in {17, 64, 65, 129, 1000} just
+    past the skinny tile and around its 64-row halves, F 2000 not a multiple
+    of its 64-deep stages, G in {64, 320, 960, 5504} ending inside a
+    256-wide tile, T in {1, 2, 4}; F and G below one 64-wide box), bases
+    16- but not 128-byte aligned, F x
+    G = 100 x 60 (element-wise tile loads), bf16 and fp32; a repeat launch
+    gives the same bits, the bf16 epilogue gives the fp32 C's bits
+    rounded, and T launches of #2 agree with #1.  Returns the largest
+    errors."""
     gen = torch.Generator(device="cuda").manual_seed(12)
     cases = [(2, E, F, G) for E in (1024, 4)
              for F, G in ((2048, 2048), (2048, 256), (2048, 5504),
@@ -970,10 +1007,16 @@ def phase_summa_kernels():
                            (11008, 4096))]
     cases += _path_mm_shapes()
     cases += [(T, E, 2048, 256) for T in (1, 2, 4) for E in (1, 3, 1000)]
+    cases += [(T, E, F, G) for E in (17, 64, 65, 129, 1000)
+              for G in (64, 320, 960, 5504)
+              for T, F in ((1, 2000), (2, 2048), (4, 2000))]
+    # F and G below one 64-wide TMA box
+    cases += [(1, 33, 24, 40), (2, 20, 56, 8)]
     # F and G not multiples of 8: the tiles load element by element
     cases += [(2, 5, 100, 60), (1, 200, 100, 60)]
     worst = {"tesseract_mm": 0.0, "tesseract_mm_stream": 0.0}
     bitwise = True
+    n = 0
     for dtype in (torch.bfloat16, torch.float32):
         for T, E, F, G in cases:
             a, b = _mm_inputs(gen, T, E, F, G, dtype)
@@ -983,9 +1026,23 @@ def phase_summa_kernels():
             worst["tesseract_mm_stream"] = max(worst["tesseract_mm_stream"],
                                                e2)
             bitwise &= same
+            n += 1
             del a, b
+    # TMA takes any 16-byte-aligned base: sliced views, as #2's a[t] are
+    for T, E, F, G in ((2, 1000, 2048, 960), (1, 129, 2000, 320)):
+        a, b = (_offset_copy(x) for x in _mm_inputs(gen, T, E, F, G,
+                                                    torch.bfloat16))
+        check(a.data_ptr() % 128 == 16 and b.data_ptr() % 128 == 16,
+              "offset views are not 16 bytes past a 128-byte boundary")
+        e1, e2, same = _mm_check(a, b, f"T={T} E={E} F={F} G={G} bf16 at "
+                                       f"a 16-byte offset")
+        worst["tesseract_mm"] = max(worst["tesseract_mm"], e1)
+        worst["tesseract_mm_stream"] = max(worst["tesseract_mm_stream"], e2)
+        bitwise &= same
+        n += 1
+        del a, b
     torch.cuda.empty_cache()
-    log(f"summa kernel phase: {2 * len(cases)} cases pass (tolerance "
+    log(f"summa kernel phase: {n} cases pass (tolerance "
         f"{MM_TOL} x max |plain|), repeat launches bit-identical, bf16 "
         f"epilogue = fp32 C rounded, #2 x T "
         f"{'bit-identical to' if bitwise else 'within tolerance of'} #1; max "
@@ -998,8 +1055,10 @@ def _host_us_per_projection(calls=2000):
     """Host time of one projection at one rank: ``tesseract_matmul`` (the
     SUMMA wrapper and kernel #1's launch) against ``torch.matmul``, each
     issued ``calls`` times back to back on decode-shaped [8, 1, 256] x
-    [256, 256] bf16 operands, whose few microseconds of device time leave
-    the host's issue rate as the wall time per call."""
+    [256, 256] bf16 operands (the skinny route), and ``tesseract_matmul``
+    on 32 rows, [1, 32, 256] (the wgmma route, whose launch also encodes
+    two TMA descriptors); their few microseconds of device time leave the
+    host's issue rate as the wall time per call."""
     from repro_torch.core.api import ParallelContext
     from repro_torch.core.mesh import Mesh
     from repro_torch.core.summa import tesseract_matmul
@@ -1007,11 +1066,14 @@ def _host_us_per_projection(calls=2000):
     mesh = Mesh(ctx)
     gen = torch.Generator(device="cuda").manual_seed(14)
     x = randn(gen, 8, 1, 256, dtype=torch.bfloat16)
+    x32 = randn(gen, 1, 32, 256, dtype=torch.bfloat16)
     w = randn(gen, 256, 256, dtype=torch.bfloat16)
     us = {}
     for name, fn in (("tesseract_matmul",
                       lambda: tesseract_matmul(ctx, mesh, x, w)),
-                     ("torch.matmul", lambda: torch.matmul(x, w))):
+                     ("torch.matmul", lambda: torch.matmul(x, w)),
+                     ("tesseract_matmul 32 rows",
+                      lambda: tesseract_matmul(ctx, mesh, x32, w))):
         with torch.no_grad():
             for _ in range(100):
                 fn()
@@ -1023,14 +1085,18 @@ def _host_us_per_projection(calls=2000):
         us[name] = 1e6 * (time.perf_counter() - t0) / calls
     log(f"host per projection (one rank, [8, 1, 256] x [256, 256] bf16, "
         f"{calls} calls): tesseract_matmul {us['tesseract_matmul']:.2f} us, "
-        f"torch.matmul {us['torch.matmul']:.2f} us")
+        f"torch.matmul {us['torch.matmul']:.2f} us; [1, 32, 256] (wgmma "
+        f"route, TMA descriptors encoded per launch): tesseract_matmul "
+        f"{us['tesseract_matmul 32 rows']:.2f} us")
 
 
 def phase_summa_timings(launches, ring_launches, worst):
     """Kernel / plain / library times of #1 and #2 in bf16 at the q = 2
-    per-rank gate/up shape (T 2, E 1024, F 2048, G 5504) and the one-rank
-    one (T 1, E 2048, F 4096, G 11008), each checked once more on the timed
-    inputs, and at the decode rows of the same projections (E 4 and 8);
+    per-rank gate/up shape (T 2, E 1024, F 2048, G 5504), smollm-360m's
+    train gate/up (E 16384, F 960, G 2560), mamba2-1.3b's prefill w_z/w_x
+    (E 16384, F 2048, G 4096) and the one-rank gate/up (T 1, E 2048, F
+    4096, G 11008), each checked once more on the timed inputs, and at
+    the decode rows of the yi-6b projections (E 4 and 8);
     the kernels line carries the one-rank prefill shape (the last), the
     serve phase's launches for #1 and the ring phase's for #2.  #1 is timed
     as the fused schedule launches it, its C rounded to bf16 in the
@@ -1050,6 +1116,10 @@ def phase_summa_timings(launches, ring_launches, worst):
                                5504),
                               ("one-rank decode gate/up", 1, 8, 4096, 11008),
                               ("q=2 per-rank gate/up", 2, 1024, 2048, 5504),
+                              ("smollm-360m train gate/up", 1,
+                               TRAIN_SEQ * TRAIN_BATCH, 960, 2560),
+                              ("mamba2-1.3b prefill w_z/w_x", 1,
+                               SSM_BATCH * SSM_PROMPT, 2048, 4096),
                               ("one-rank gate/up", 1, 2048, 4096, 11008)):
         a, b = _mm_inputs(gen, T, E, F, G, bf16)
         e1, e2, _ = _mm_check(a, b, f"timed {label}")
@@ -1469,8 +1539,14 @@ def _time_bwd(gen, B, Hq, Hkv, T, D, worst):
           f"lse err {e_lse:.3g}")
     worst["flash_fwd"] = max(worst["flash_fwd"], e_out)
     del out, lse, r_out
-    _, e_dq, e_dkv = _bwd_check(args, bf, f"flash bwd timed shape B={B} "
-                                f"Hq={Hq} D={D}", **kw)
+    (dq, _, _), e_dq, e_dkv = _bwd_check(args, bf, f"flash bwd timed shape "
+                                         f"B={B} Hq={Hq} D={D}", **kw)
+    # outputs whose bf16 rounding differs from the plain version's (dS is
+    # split in two parts on the tensor cores)
+    flips = int((dq != flash_dq_plain(*args, **kw)).sum())
+    log(f"flash_dq B={B} Hq={Hq} D={D}: {flips} of {dq.numel()} bf16 "
+        f"outputs differ from the plain version's")
+    del dq
     worst["flash_dq"] = max(worst["flash_dq"], e_dq)
     worst["flash_dkv"] = max(worst["flash_dkv"], e_dkv)
     t = {"flash_dq": time_ms(lambda: flash_dq(*args, **kw)),

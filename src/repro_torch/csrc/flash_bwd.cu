@@ -6,9 +6,7 @@
 // from the _flash custom_vjp on every training step.  They compute what
 // those kernels compute, not their grid walk:
 //   * dQ: one thread block per (q tile of BQ rows, q head, batch); the KV
-//     walk is a loop inside the block over the tile range [lo, hi) of
-//     _kv_bounds (the forward's tiles and bounds; q_start < 0 stands for
-//     None and walks every tile under the masks).  Per KV tile:
+//     walk is a loop inside the block.  Per KV tile:
 //     p = exp(s * scale - lse), ds = p * (dO . V^T - delta), dq += ds . K.
 //   * dK/dV: one thread block per (kv tile of BK rows, kv head, batch); it
 //     walks the g q heads of its GQA group and, for each, the q tiles of
@@ -16,11 +14,32 @@
 //     registers.  One block owns each dK/dV tile, so there are no atomics
 //     and the result is the same bits run to run.
 //   * masks come from q_pos; rows >= Tq and columns >= Tk are dead (they
-//     load zeros, contribute p = 0 and are not stored).  A masked entry has
-//     p = 0 exactly, as exp(NEG_INF - lse) is in the reference, so a fully
-//     masked row (lse = -1e25) gives exact-zero gradients.
+//     load zeros, contribute p = 0 or ds = 0 and are not stored).  A masked
+//     entry has p = 0 exactly, as exp(NEG_INF - lse) is in the reference, so
+//     a fully masked row (lse = -1e25) gives exact-zero gradients.
 //   * all sums are fp32 and the results are rounded once to the inputs'
 //     dtype.  The entries pick a route by dtype.
+//
+// dQ, bf16 inputs: tensor cores (flash_dq_mma_kernel), flash_dkv_mma_kernel
+// with the roles of q and kv swapped.  4 warps, each owning 16 q rows of
+// the BQ = 64 tile, with the dQ accumulator in registers for the whole
+// walk.  Q, dO and the rows' positions, lse and delta come in once per
+// block; at D = 64 the A fragments of Q and dO stay in registers, at D =
+// 128 (dQ alone takes 64 registers a thread, S and dP 32 each) they are
+// read from shared memory by ldmatrix per k step.  K and V tiles (bf16,
+// 16-byte-padded rows) come in by cp.async, double buffered.  Per KV tile,
+// on mma.sync m16n8k16 (bf16 in, fp32 sums):
+//     S = Q.K^T, dP = dO.V^T (exact bf16 products);
+//     P = exp(scale S - lse) under the mask; dS = P o (dP - delta);
+//     dQ += dS.K, dS = hi + lo bf16 parts (split_bf16x2), K the B operand
+//     by ldmatrix.trans; dQ is scaled and rounded to bf16 once at the end.
+// The walk is the forward's: only the KV tiles some row of the block can
+// see, from the rows' positions (common.cuh's kv_tile_range; with q_pos =
+// q_start + arange it is _kv_bounds), so q_start = None walks the causal
+// half too; a skipped tile is masked for every row and adds exactly 0.  The
+// linear grid starts the q tiles with the longest causal walks first.  One
+// block owns each dQ tile and there are no atomics: two launches give the
+// same bits.
 //
 // dK/dV, bf16 inputs: tensor cores (flash_dkv_mma_kernel).  4 warps, each
 // owning 16 kv rows of the BK = 64 tile; the dK and dV accumulators stay in
@@ -33,30 +52,30 @@
 //     S^T = K.Q^T, P^T = exp(scale S^T - lse[q]) under the mask;
 //     dV += P^T.dO;  dP^T = V.dO^T;  dS^T = P^T o (dP^T - delta[q]);
 //     dK += dS^T.Q (times scale once at the end).
-// P^T and dS^T stay fp32-grade, as the reference's are fp32: each is split
-// into hi = bf16(x) and lo = bf16(x - hi) and both go through the product
-// (~2^-18 of each term; the gradients are checked relative to their
-// largest entry, where this is far below one bf16 rounding), their C
+// P^T and dS^T (and dQ's dS) stay fp32-grade, as the reference's are fp32:
+// each is split into hi = bf16(x) and lo = bf16(x - hi) and both go through
+// the product (~2^-18 of each term; the gradients are checked relative to
+// their largest entry, where this is far below one bf16 rounding), their C
 // fragments serving as A fragments in registers (mma.cuh), never in shared
 // memory.  The q tile is BQ = 64 at D = 64 and 32 at D = 128, where 64
 // would leave dK, dV, S^T and dP^T no room in 255 registers.  The grid is
 // linear with the kv tile slowest: under a causal mask the first kv tiles
 // walk the most q tiles, so they start first and the short walks fill the
-// tail.
+// tail.  It walks the q tiles of _q_bounds (q_start < 0 stands for None and
+// walks every q tile under the masks).
 //
 // What bounds them: dQ does ~6*D FLOPs and dK/dV ~8*D FLOPs per causal
 // (q, k) pair per q head, far above the H100's ~295 FLOP/byte ridge, so
 // both are compute bound; the card's bf16 tensor-core peak (989 TFLOP/s) is
-// the bound they are measured against.  The dK/dV kernel's tensor cores run
-// mma.sync, short of wgmma's rate, with the split's 1.5x on both products
-// and the exp and masks on the CUDA cores beside them; TMA and wgmma are
-// its next step.  The dQ pass and fp32 dK/dV still run the first version:
-// fp32 FMA on the CUDA cores (67 TFLOP/s peak at most), 256 threads in 16
-// row groups x 16 lanes, each thread holding a 4x4 tile of scores and of
-// dO.V^T and a 4x(D/16) tile of each output in registers, the operand
-// tiles staged in shared memory as fp32 with padded rows (at D = 128 the
-// fp32 dK/dV block uses 165 KB, one block per SM).  dQ (#4) is the next
-// kernel to move onto these fragments: dQ += dS.K with dS split.
+// the bound they are measured against.  Their tensor cores run mma.sync,
+// short of wgmma's rate, each split operand doubling the product it feeds,
+// and the exp and masks on the CUDA cores beside them.  fp32 inputs keep the
+// first version of both passes: fp32 FMA on the CUDA cores (67 TFLOP/s
+// peak at most), 256 threads in 16 row groups x 16 lanes, each thread
+// holding a 4x4 tile of scores and of dO.V^T and a 4x(D/16) tile of each
+// output in registers, the operand tiles staged in shared memory as fp32
+// with padded rows (at D = 128 the fp32 dK/dV block uses 165 KB, one block
+// per SM), walking the tile ranges of _kv_bounds / _q_bounds.
 #include <type_traits>
 
 #include "common.cuh"
@@ -376,7 +395,8 @@ __global__ void __launch_bounds__(NT) flash_dkv_kernel(BwdArgs a) {
 }
 
 // ------------------------------------------------------- bf16: tensor cores
-constexpr int MNT = 128;  // dK/dV threads per block: 4 warps x 16 kv rows
+constexpr int MNT = 128;  // threads per block: 4 warps x 16 kv (dK/dV) or q
+                          // (dQ) rows
 
 template <int D>
 constexpr int kDkvBQ = D == 128 ? 32 : 64;  // q rows per step (see the header)
@@ -614,6 +634,205 @@ __global__ void __launch_bounds__(MNT) flash_dkv_mma_kernel(BwdArgs a) {
   }
 }
 
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {  // Q and dO, two stages of K and V
+  return sizeof(__nv_bfloat16) * (2 * BQ + 4 * BK) * (D + 8);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MNT) flash_dq_mma_kernel(BwdArgs a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = D + 8;    // padded shared-memory row (elements)
+  constexpr int KD = D / 16;   // k steps of S = Q.K^T and dP = dO.V^T
+  constexpr int NS = BK / 8;   // n8 tiles of a warp's 16 x BK S and dP
+  constexpr int NO = D / 8;    // n8 tiles of a warp's 16 x D dQ
+  constexpr bool kHold = D == 64;  // Q, dO fragments in registers (header)
+  constexpr int KF = kHold ? KD : 1;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
+  bf16* dOs = Qs + BQ * LD;                      // [BQ][LD]
+  bf16* Ks = dOs + BQ * LD;                      // [2][BK][LD]
+  bf16* Vs = Ks + 2 * BK * LD;                   // [2][BK][LD]
+  __shared__ int qp_s[BQ];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int group = lane >> 2, tig = lane & 3;
+  const int which = lane >> 3, r8 = lane & 7;  // ldmatrix: lanes 8i.. address
+                                               // the rows of matrix i
+  // the linear grid, q tile slowest and walked from the last (see the
+  // header)
+  const int nq = (a.Tq + BQ - 1) / BQ, HB = gridDim.x / nq;
+  const int qt = nq - 1 - blockIdx.x / HB;
+  const int h = blockIdx.x % a.Hq, b = blockIdx.x % HB / a.Hq;
+  const int hk = h / (a.Hq / a.Hkv);
+  const int q0 = qt * BQ;
+  const size_t qrow0 = (size_t)(b * a.Hq + h) * a.Tq;
+  const size_t krow0 = (size_t)(b * a.Hkv + hk) * a.Tk;
+  const bf16* k = static_cast<const bf16*>(a.k) + krow0 * D;
+  const bf16* v = static_cast<const bf16*>(a.v) + krow0 * D;
+
+  repro::cp_async_rows<BQ, D, MNT>(
+      Qs, static_cast<const bf16*>(a.q) + qrow0 * D, q0, a.Tq);
+  repro::cp_async_rows<BQ, D, MNT>(
+      dOs, static_cast<const bf16*>(a.dout) + qrow0 * D, q0, a.Tq);
+  for (int r = threadIdx.x; r < BQ; r += MNT) {
+    const int row = q0 + r;
+    // rows past Tq continue the position sequence (as the forward's do);
+    // their dO and delta are 0, so their dS is 0, and they are not stored
+    qp_s[r] = row < a.Tq ? a.qpos[row] : a.qpos[a.Tq - 1] + 1 + (row - a.Tq);
+  }
+  __syncthreads();
+  int qmin = min(qp_s[lane], qp_s[lane + 32]);
+  int qmax = max(qp_s[lane], qp_s[lane + 32]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    qmin = min(qmin, __shfl_xor_sync(0xffffffffu, qmin, off));
+    qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, off));
+  }
+  int lo, hi;
+  repro::kv_tile_range<BK>(a.Tk, a.causal, a.window, qmin, qmax, lo, hi);
+  if (lo < hi) {
+    repro::cp_async_rows<BK, D, MNT>(Ks, k, lo * BK, a.Tk);
+    repro::cp_async_rows<BK, D, MNT>(Vs, v, lo * BK, a.Tk);
+  }
+  repro::cp_async_commit();
+  repro::cp_async_wait<0>();
+  __syncthreads();
+
+  // this thread's rows: r0 (registers 0, 1 of a fragment) and r0 + 8 (2, 3)
+  const int r0 = warp * 16 + group;
+  const int qp[2] = {qp_s[r0], qp_s[r0 + 8]};
+  float lse[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    lse[i] = row < a.Tq ? a.lse[qrow0 + row] : 0.f;
+    dlt[i] = row < a.Tq ? a.delta[qrow0 + row] : 0.f;
+  }
+  // A fragments of the warp's 16 q rows of Q and dO, all of D (D = 64)
+  const bf16* qa_row = Qs + (warp * 16 + (which & 1) * 8 + r8) * LD +
+                       (which >> 1) * 8;
+  const bf16* oa_row = qa_row + BQ * LD;  // the same row of dOs
+  uint32_t qf[KF][4], of[KF][4];
+  if constexpr (kHold) {
+#pragma unroll
+    for (int ks = 0; ks < KD; ++ks) {
+      repro::ldmatrix_x4(qf[ks], qa_row + ks * 16);
+      repro::ldmatrix_x4(of[ks], oa_row + ks * 16);
+    }
+  }
+
+  float dq[NO][4];
+#pragma unroll
+  for (int d = 0; d < NO; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[d][e] = 0.f;
+
+  for (int jt = lo; jt < hi; ++jt) {
+    const int cur = (jt - lo) & 1;
+    repro::cp_async_wait<0>();  // tile jt has landed
+    __syncthreads();  // ... for every thread, and tile jt - 1 is consumed,
+                      // so its stage takes tile jt + 1 while jt computes
+    if (jt + 1 < hi) {
+      repro::cp_async_rows<BK, D, MNT>(Ks + (cur ^ 1) * BK * LD, k,
+                                       (jt + 1) * BK, a.Tk);
+      repro::cp_async_rows<BK, D, MNT>(Vs + (cur ^ 1) * BK * LD, v,
+                                       (jt + 1) * BK, a.Tk);
+    }
+    repro::cp_async_commit();
+    const bf16* Kc = Ks + cur * BK * LD;
+    const bf16* Vc = Vs + cur * BK * LD;
+    const int k0 = jt * BK;
+
+    // S = Q.K^T and dP = dO.V^T: K and V are stored [kv][d], the B
+    // operand's column-major layout
+    float s[NS][4], ds[NS][4];
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = ds[nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KD; ++ks) {
+      uint32_t qa[4], oa[4];
+      if constexpr (kHold) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          qa[r] = qf[ks][r];
+          oa[r] = of[ks][r];
+        }
+      } else {
+        repro::ldmatrix_x4(qa, qa_row + ks * 16);
+        repro::ldmatrix_x4(oa, oa_row + ks * 16);
+      }
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        const int at = (np * 16 + (which >> 1) * 8 + r8) * LD + ks * 16 +
+                       (which & 1) * 8;
+        uint32_t kb[4], vb[4];
+        repro::ldmatrix_x4(kb, Kc + at);
+        repro::mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+        repro::mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
+        repro::ldmatrix_x4(vb, Vc + at);
+        repro::mma_bf16(ds[2 * np], oa, vb[0], vb[1]);
+        repro::mma_bf16(ds[2 * np + 1], oa, vb[2], vb[3]);
+      }
+    }
+
+    // a tile that every row of the block sees whole needs no mask
+    const bool whole = k0 + BK <= a.Tk &&
+                       (!a.causal || k0 + BK - 1 <= qmin) &&
+                       (a.window <= 0 || k0 > qmax - a.window);
+    // P = exp(scale S - lse), exactly 0 where masked; dS = P o (dP - delta)
+#pragma unroll
+    for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = __expf(s[nt][e] * a.scale - lse[i]);
+        if (!whole && !visible(a, qp[i], k0 + nt * 8 + 2 * tig + (e & 1)))
+          p = 0.f;
+        ds[nt][e] = p * (ds[nt][e] - dlt[i]);
+      }
+
+    // dQ += dS.K, dS = hi + lo: dS tiles 2 kc and 2 kc + 1 are the A
+    // fragment over kv rows 16 kc .. 16 kc + 15
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      uint32_t dh[4], dl[4];
+      repro::split_bf16x2(ds[2 * kc][0], ds[2 * kc][1], dh[0], dl[0]);
+      repro::split_bf16x2(ds[2 * kc][2], ds[2 * kc][3], dh[1], dl[1]);
+      repro::split_bf16x2(ds[2 * kc + 1][0], ds[2 * kc + 1][1], dh[2], dl[2]);
+      repro::split_bf16x2(ds[2 * kc + 1][2], ds[2 * kc + 1][3], dh[3], dl[3]);
+#pragma unroll
+      for (int dp = 0; dp < NO / 2; ++dp) {
+        uint32_t kb[4];
+        repro::ldmatrix_x4_trans(kb, Kc + (kc * 16 + (which & 1) * 8 + r8) * LD
+                                         + dp * 16 + (which >> 1) * 8);
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {  // the two n8 tiles, small part first
+          repro::mma_bf16(dq[2 * dp + h2], dl, kb[2 * h2], kb[2 * h2 + 1]);
+          repro::mma_bf16(dq[2 * dp + h2], dh, kb[2 * h2], kb[2 * h2 + 1]);
+        }
+      }
+    }
+  }
+  repro::cp_async_wait<0>();
+
+  bf16* gq = static_cast<bf16*>(a.dq) + qrow0 * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + 8 * i;
+    if (row >= a.Tq) continue;
+#pragma unroll
+    for (int d = 0; d < NO; ++d)
+      *reinterpret_cast<__nv_bfloat162*>(gq + (size_t)row * D + d * 8 +
+                                         2 * tig) =
+          __floats2bfloat162_rn(dq[d][2 * i] * a.scale,
+                                dq[d][2 * i + 1] * a.scale);
+  }
+}
+
 template <typename T, int D>
 cudaError_t launch_dq(const BwdArgs& a, int B, cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<D>();
@@ -639,6 +858,18 @@ cudaError_t launch_dkv(const BwdArgs& a, int B, cudaStream_t stream) {
 }
 
 template <int D>
+cudaError_t launch_dq_mma(const BwdArgs& a, int B, cudaStream_t stream) {
+  constexpr size_t smem = dq_mma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Tq + BQ - 1) / BQ * a.Hq * B);
+  flash_dq_mma_kernel<D><<<grid, MNT, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_dkv_mma(const BwdArgs& a, int B, cudaStream_t stream) {
   constexpr size_t smem = dkv_mma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -650,16 +881,15 @@ cudaError_t launch_dkv_mma(const BwdArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// dQ: the FMA kernel for both dtypes; dK/dV: FMA for fp32, tensor cores for
-// bf16 (q, k, v, dout 16-byte aligned, as cp.async reads them; the wrapper
-// checks)
+// both passes: FMA for fp32, tensor cores for bf16 (q, k, v, dout 16-byte
+// aligned, as cp.async reads them; the wrapper checks)
 template <typename T, int D>
 cudaError_t launch(const BwdArgs& a, int B, bool dkv, cudaStream_t stream) {
-  if (!dkv) return launch_dq<T, D>(a, B, stream);
   if constexpr (std::is_same_v<T, __nv_bfloat16>)
-    return launch_dkv_mma<D>(a, B, stream);
+    return dkv ? launch_dkv_mma<D>(a, B, stream)
+               : launch_dq_mma<D>(a, B, stream);
   else
-    return launch_dkv<T, D>(a, B, stream);
+    return dkv ? launch_dkv<T, D>(a, B, stream) : launch_dq<T, D>(a, B, stream);
 }
 
 // picks the (dtype, head dim) instance; anything else is refused

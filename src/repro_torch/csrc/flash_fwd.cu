@@ -249,22 +249,6 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashArgs a) {
 constexpr int MNT = 128;  // threads per block: 4 warps x 16 q rows
 constexpr float kLog2e = 1.4426950408889634f;
 
-// floor(a / b) for b > 0 (C's / truncates toward zero)
-__device__ __forceinline__ int floor_div(int a, int b) {
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
-}
-
-// [lo, hi) of the KV tiles that some row of the q tile can see, from the
-// smallest and largest position of its BQ rows (padding included); see the
-// header.  kernels/flash_attention.py::flash_kv_tiles is its plain mirror.
-__device__ __forceinline__ void kv_tile_range(const FlashArgs& a, int qmin,
-                                              int qmax, int& lo, int& hi) {
-  lo = 0;
-  hi = (a.Tk + BK - 1) / BK;
-  if (a.causal) hi = min(hi, max(floor_div(qmax, BK) + 1, 0));
-  if (a.window > 0) lo = max(lo, floor_div(qmin - a.window + 1, BK));
-}
-
 template <int D>
 constexpr size_t mma_smem_bytes() {  // Q, and two stages of K and V
   return sizeof(__nv_bfloat16) * (BQ + 4 * BK) * (D + 8);
@@ -316,7 +300,7 @@ __global__ void __launch_bounds__(MNT) flash_fwd_mma_kernel(FlashArgs a) {
     qmax = max(qmax, __shfl_xor_sync(0xffffffffu, qmax, off));
   }
   int lo, hi;
-  kv_tile_range(a, qmin, qmax, lo, hi);
+  repro::kv_tile_range<BK>(a.Tk, a.causal, a.window, qmin, qmax, lo, hi);
   if (lo < hi) {
     repro::cp_async_rows<BK, D, MNT>(Ks, k, lo * BK, a.Tk);
     repro::cp_async_rows<BK, D, MNT>(Vs, v, lo * BK, a.Tk);

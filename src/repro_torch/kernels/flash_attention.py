@@ -9,8 +9,9 @@ Counterpart of ``repro/kernels/flash_attention.py``: ``flash_fwd`` of
 is the same function in straightforward PyTorch (the full fp32 score
 matrix), used by the CPU tests, by ``attn_impl="jnp"`` and by
 ``chip_smoke.py``'s comparison.  A bf16 CUDA tensor reaches the
-kernels' tensor-core routes (the forward and dK/dV), fp32 their FMA routes;
-``flash_kv_tiles`` mirrors the KV tile range the bf16 forward walks.
+kernels' tensor-core routes (the forward, dQ and dK/dV), fp32 their FMA
+routes; ``flash_kv_tiles`` mirrors the KV tile range the bf16 forward and
+dQ walk.
 
 Contract of all (the reference's): q [B, Hq, Tq, D], k/v [B, Hkv, Tk, D]
 with Hq = g * Hkv (q head h reads kv head h // g); KV rows sit at positions
@@ -61,14 +62,15 @@ def _q_positions(q_pos, q_start, Tq, device):
     return q_pos.to(device=device, dtype=torch.int32)
 
 
-FWD_TILE = 64    # q rows and kv rows of a tile of flash_fwd.cu's bf16 route
+FWD_TILE = 64    # q rows and kv rows of a tile of the bf16 forward and dQ
 
 
 def flash_kv_tiles(q_pos, Tk, bq=FWD_TILE, bk=FWD_TILE, causal=True,
                    window=0):
     """[(lo, hi)] per q tile of ``bq`` rows: the KV tiles of ``bk`` columns
-    that ``csrc/flash_fwd.cu``'s bf16 route walks.  A plain mirror of that
-    kernel's ``kv_tile_range``, for the tests.
+    that the bf16 routes of ``csrc/flash_fwd.cu`` and of the dQ pass in
+    ``csrc/flash_bwd.cu`` walk.  A plain mirror of ``common.cuh``'s
+    ``kv_tile_range``, for the tests.
 
     The range comes from the tile's own positions (rows past Tq continue
     the sequence, as the kernel pads them): causal keeps the tiles whose

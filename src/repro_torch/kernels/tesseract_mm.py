@@ -15,10 +15,14 @@ Counterpart of ``repro/kernels/tesseract_mm.py``:
   ``_stream_kernel``, whose accumulator is donated): one step of the ring
   schedule.
 
-Both launch ``csrc/tesseract_mm.cu`` for CUDA tensors (bf16 on the tensor
-cores, fp32 by FMA; any E, F and G) or raise, and take the plain versions
-only for CPU tensors.  The plain versions are the reference's
-``ref.py::tesseract_mm_ref`` in torch, an einsum, but summed in float64
+Both launch ``csrc/tesseract_mm.cu`` for CUDA tensors or raise, and take
+the plain versions only for CPU tensors.  The kernel's route follows the
+shape: bf16 with E > 16, F and G multiples of 8 and 16-byte-aligned bases
+(every prefill and train projection) on ``wgmma`` fed by TMA; bf16 with
+E <= 16 (decode) on the skinny ``mma.sync`` tile; any other bf16 shape on
+``mma.sync`` with element-wise loads; fp32 by FMA.  The plain versions are
+the reference's ``ref.py::tesseract_mm_ref`` in torch, an einsum, but
+summed in float64
 and rounded once to float32: the exact oracle that every float32
 accumulation order (the kernels' tiles, XLA's dot) approximates.  An
 fp32 einsum would add one more order of its own, and one such order
