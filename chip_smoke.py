@@ -8,8 +8,9 @@ non-zero and prints no result:
 1. card: the GPU's name and power limit (nvidia-smi), and the build of the
    CUDA kernels from src/repro_torch/csrc with nvcc for sm_90a; ptxas must
    report no spills in the tensor-core kernels (the flash forward, dQ and
-   dK/dV at D 64 and 128, and the SUMMA kernel's wgmma route), and that
-   route's SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG);
+   dK/dV at D 64 and 128, the SUMMA kernel's wgmma route, and the SSD
+   pass's TF32 kernel at P 16 and 64), and the wgmma route's SASS must
+   hold wgmma (HGMMA) and TMA loads (UTMALDG);
 2. kernels: each kernel against its plain PyTorch version on the card
    (flash forward, and the flash backward's dQ and dK/dV passes, at yi-6b
    and smollm-360m head shapes, Tq = Tk in {16, 1000, 2048}, q_start 0 /
@@ -19,7 +20,10 @@ non-zero and prints no result:
    with the positions given and window 256, positions 37 past the keys,
    permuted positions, and a first block whose rows are all masked; paged
    decode with random tables, mixed positions with scratch slots, window 0
-   / 64, a non-uniform kv_map, block sizes 8 / 16; the SSD intra-chunk pass
+   / 64, a non-uniform kv_map, block sizes 8 / 16, and the split kernel's
+   edges (a 256-page table with short positions, a window crossing a split
+   boundary, every q head on one kv head), launched twice giving the same
+   bits; the SSD intra-chunk pass
    at (H, P, N) = (64, 64, 128) and (4, 16, 16), Q in {256, 250, 143, 16,
    1}, B in {1, 2}, nc in {1, 8}, mild and steep decay, and launched twice
    giving the same bits);
@@ -75,8 +79,12 @@ non-zero and prints no result:
    kernels at yi-6b's q = 2 per-rank and one-rank gate/up shapes), then
    kernel, plain version and library call timed (CUDA events, median of
    20 launches with a cold L2), each beside the least time the card could
-   take (bound); the bf16 outputs of dQ whose rounding differs from the
-   plain version's; and the host time of one projection (the SUMMA
+   take (bound) and, for the kernels redesigned last, the time recorded
+   before the redesign (was_ms_recorded, a constant, not measured in the
+   run); paged decode also its two kernels' device time under
+   torch.profiler (device_ms: at that size the event span also holds the
+   wrapper's host path); the bf16 outputs of dQ whose rounding differs
+   from the plain version's; and the host time of one projection (the SUMMA
    wrapper against torch.matmul, and on the wgmma route, whose launch
    encodes two TMA descriptors);
 13. the last line: {"ok": true, "device": {...}}.
@@ -124,7 +132,13 @@ SSM_MM = 4                   # per ssm layer: w_z, w_x, w_dt, w_out
 # tensor-core kernel -> instances (D 64 and 128 for flash) in the build
 TENSOR_CORE_KERNELS = {"flash_fwd_mma_kernel": 2, "flash_dkv_mma_kernel": 2,
                        "flash_dq_mma_kernel": 2,
-                       "tesseract_mm_wgmma_kernel": 2}   # C loaded or not
+                       "tesseract_mm_wgmma_kernel": 2,   # C loaded or not
+                       "ssd_intra_mma_kernel": 2}        # P 16 and 64
+# each redesigned kernel's time at its timing shape before the redesign,
+# recorded (NVIDIA H100 80GB HBM3, 700 W; PERF.md) and printed as
+# was_ms_recorded, not measured in the run: paged decode with one block
+# per (q head, batch), the SSD pass on fp32 FMA
+WAS_MS = {"paged_attention": 0.346, "ssd_intra": 2.120}
 
 
 class CheckFailed(Exception):
@@ -159,6 +173,27 @@ def time_ms(fn, iters=20, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, kernel, iters=20):
+    """Device time per call of the kernels whose names hold ``kernel``,
+    under torch.profiler, over ``iters`` calls each after an L2 flush as in
+    ``time_ms``: the kernels' own time, without the host path that a
+    CUDA-event span around a short call also holds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and kernel in e.key) \
+        / 1e3 / iters
 
 
 def randn(gen, *shape, dtype=torch.float32):
@@ -383,8 +418,22 @@ def phase_kernels():
                           f"paged Hq={Hq} D={D} bs={bs} window={window} "
                           f"{dtype}: err {e:.3g}")
                     n += 1
-    log(f"kernel phase: {n} cases pass; max |kernel - plain| "
-        f"flash {worst['flash_fwd']:.3g}, paged "
+            for label, kw in PAGED_SPLIT_CASES:
+                e = _paged_case(gen, Hq, Hkv, D, dtype=dtype, **kw)
+                worst["paged_attention"] = max(worst["paged_attention"], e)
+                check(e <= tol_out, f"paged {label} Hq={Hq} D={D} {dtype}: "
+                                    f"err {e:.3g}")
+                n += 1
+    # the splits merge in a fixed order with no atomics: two launches give
+    # the same bits
+    from repro_torch.kernels.paged_attention import paged_attention
+    args = _paged_inputs(gen, 32, 4, 128, 16, torch.bfloat16, max_len=4096,
+                         pos=[144, 528, 1016, 2016, 4095, 9, 300, 0])
+    a, b = paged_attention(*args), paged_attention(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), "paged_attention is not deterministic run to run")
+    log(f"kernel phase: {n} cases pass, paged decode deterministic; max "
+        f"|kernel - plain| flash {worst['flash_fwd']:.3g}, paged "
         f"{worst['paged_attention']:.3g}")
     return worst
 
@@ -419,29 +468,57 @@ def _flash_skip_cases(gen, Hq, Hkv, D, dtype, worst):
     return len(cases)
 
 
-def _paged_case(gen, Hq, Hkv, D, bs, window, dtype):
-    from repro_torch.kernels.paged_attention import (paged_attention,
-                                                     paged_attention_plain)
-    B, max_len = 8, 2048
+def _paged_inputs(gen, Hq, Hkv, D, bs, dtype, max_len=2048, pos=None,
+                  one_kv=False):
+    """(q, pool_k, pool_v, table, pos, kv_map) for 8 slots over ``max_len``
+    positions of ``bs``-position pages: random tables, slots 0 and 7
+    retired (all scratch, pos 0), a random kv_map (or every q head sent to
+    the last kv head, ``one_kv``)."""
+    B = 8
     nb = max_len // bs
     P = B * nb + 1
-    pos = torch.tensor([0, 5, bs - 1, bs, 700, 1500, max_len - 1, 0],
-                       dtype=torch.int32, device="cuda")
+    if pos is None:
+        pos = [0, 5, bs - 1, bs, 700, 1500, max_len - 1, 0]
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
     perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
     table = perm[:B * nb].reshape(B, nb).to(torch.int32)
     table[0] = 0                       # retired slots: all scratch, pos 0
     table[-1] = 0
     kv_map = torch.randint(0, Hkv, (Hq,), generator=gen, device="cuda",
                            dtype=torch.int32)
+    if one_kv:
+        kv_map.fill_(Hkv - 1)
     q = randn(gen, B, Hq, D, dtype=dtype)
     pk = randn(gen, P, bs, Hkv, D, dtype=dtype)
     pv = randn(gen, P, bs, Hkv, D, dtype=dtype)
-    out = paged_attention(q, pk, pv, table, pos, kv_map, local_window=window)
+    return q, pk, pv, table, pos, kv_map
+
+
+def _paged_case(gen, Hq, Hkv, D, bs, window, dtype, **kw):
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_plain)
+    args = _paged_inputs(gen, Hq, Hkv, D, bs, dtype, **kw)
+    out = paged_attention(*args, local_window=window)
     torch.cuda.synchronize()
-    ref = paged_attention_plain(q, pk, pv, table, pos, kv_map,
-                                local_window=window)
+    ref = paged_attention_plain(*args, local_window=window)
     torch.cuda.synchronize()
     return max_err(out, ref)
+
+
+# the split kernel's edges (csrc/paged_attention.cu; splits of
+# SPLIT_POSITIONS = 128 positions at bs 16): a 256-page table whose slots
+# sit in its first pages (every later split empty), a window of 100 that
+# crosses a split boundary (pos 300, 520, 1030), and every q head sent to
+# one kv head (more q heads than a block takes in one pass; the other kv
+# heads serve none)
+PAGED_SPLIT_CASES = (
+    ("256-page table, short positions",
+     dict(bs=16, window=0, max_len=4096, pos=[0, 3, 17, 100, 255, 256, 300,
+                                              0])),
+    ("window crossing a split boundary",
+     dict(bs=16, window=100, pos=[300, 520, 1030, 2000, 257, 700, 1500, 0])),
+    ("every q head to one kv head",
+     dict(bs=16, window=0, one_kv=True)))
 
 
 def _model(arch, param_dtype, compute_dtype, attn_impl):
@@ -848,6 +925,9 @@ def profile_decode(engine, rng, steps=8):
         "profile": "decode step, 8 slots at ~1000 positions",
         "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy,
         "device_idle_share": (1.0 - busy / wall_ms) if busy else None,
+        # kernel #6's launches: the split and the combine kernel
+        "paged_attention_ms_per_step": sum(
+            ms for k, ms in kernels if "paged_attention" in k),
         "top_kernels_ms_per_step": [[k[:80], ms] for k, ms in kernels[:10]]}))
     engine.run()
 
@@ -1344,7 +1424,9 @@ def phase_ssd_timings(launches, worst):
     bound_ms = max(t_ops, t_bytes) * 1e3
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     log(json.dumps({"timing": "ssd_intra", "shape": [B, nc, Q, H, P, N],
-                    "dtype": "float32", "ms": ms, "plain_ms": plain_ms,
+                    "dtype": "float32", "ms": ms,
+                    "was_ms_recorded": WAS_MS["ssd_intra"],
+                    "plain_ms": plain_ms,
                     "library_ms": None, "bound_ms": bound_ms,
                     "bound_by": bound_by, "flops": flops, "bytes": nbytes,
                     "fp32_cuda_core_ms": flops / H100_FP32_FLOPS * 1e3,
@@ -1489,6 +1571,8 @@ def phase_timings(launches, counts, worst):
     check(e <= tol_out, f"paged at the serve shape: err {e:.3g}")
     worst["paged_attention"] = max(worst["paged_attention"], e)
     ms = time_ms(lambda: paged_attention(qd, pk, pv, table, pos_t, kv_map))
+    dev_ms = device_ms(lambda: paged_attention(qd, pk, pv, table, pos_t,
+                                               kv_map), "paged_attention")
     plain_ms = time_ms(lambda: paged_attention_plain(qd, pk, pv, table,
                                                      pos_t, kv_map))
     live = sum(n + 1 for n in lens)              # attended positions
@@ -1505,7 +1589,9 @@ def phase_timings(launches, counts, worst):
         bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
     log(json.dumps({"timing": "paged_attention",
                     "shape": [B, Hq, Hkv, D, bs], "positions": lens,
-                    "dtype": "bfloat16", "ms": ms, "plain_ms": plain_ms,
+                    "dtype": "bfloat16", "ms": ms, "device_ms": dev_ms,
+                    "was_ms_recorded": WAS_MS["paged_attention"],
+                    "plain_ms": plain_ms,
                     "library_ms": None,
                     "launches_per_decode_step": launches["paged_attention"]
                     / counts["decode_steps"],

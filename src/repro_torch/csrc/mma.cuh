@@ -1,6 +1,7 @@
-// Tensor-core and copy helpers shared by the port's bf16 kernels (sm_90a):
-// cp.async staging into shared memory, ldmatrix fragment loads and the
-// mma.sync m16n8k16 bf16 product with an fp32 accumulator.
+// Tensor-core and copy helpers shared by the port's kernels (sm_90a):
+// cp.async staging into shared memory, ldmatrix fragment loads, the
+// mma.sync m16n8k16 bf16 product and the m16n8k8 TF32 product (with the
+// hi/lo split of fp32 operands), each with an fp32 accumulator.
 //
 // Fragment layout of mma.sync m16n8k16 (lane = 4 * group + tig):
 //   A (16 x 16, row major), 4 registers of two bf16: a0 = (row group,
@@ -123,6 +124,46 @@ __device__ __forceinline__ void split3_bf16x2(float x0, float x1,
   mid = __byte_perm(__float_as_uint(m0), __float_as_uint(m1), 0x7632);
   lo = __byte_perm(__float_as_uint(r0 - m0), __float_as_uint(r1 - m1),
                    0x7632);
+}
+
+// TF32 (fp32 kernels on the tensor cores).  Fragment layout of mma.sync
+// m16n8k8 .tf32 (lane = 4 * group + tig), one fp32 value a register:
+//   A (16 x 8, row major): a0 = (row group, k tig), a1 = (row group + 8,
+//     k tig), a2 = (row group, k tig + 4), a3 = (row group + 8, k tig + 4);
+//   B (8 x 8, column major): b0 = (k tig, n group), b1 = (k tig + 4, n group);
+//   C / D: as m16n8k16 above.
+// split_tf32: hi = v rounded to TF32 (10 stored mantissa bits, to nearest,
+// ties away from zero: the bits cvt.rna.tf32.f32 gives for every non-NaN
+// v, by two integer operations where the cvt's SASS adds a NaN test and a
+// select) and lo = v - hi (exact) cut to TF32, so hi + lo carries v to
+// ~2^-22 of |v|, and hi.hi + hi.lo + lo.hi (mma_tf32x3; lo.lo is dropped)
+// gives an fp32-accurate product from three TF32 passes.  A NaN v gives
+// hi = +-0 and a NaN lo, so its products stay NaN.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  constexpr uint32_t kTf32 = 0xffffe000u;
+  hi = (__float_as_uint(v) + 0x1000u) & kTf32;
+  lo = __float_as_uint(v - __uint_as_float(hi)) & kTf32;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a.b in three TF32 passes, the small terms first
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(d, a_lo, b_hi[0], b_hi[1]);
+  mma_tf32(d, a_hi, b_lo[0], b_lo[1]);
+  mma_tf32(d, a_hi, b_hi[0], b_hi[1]);
 }
 
 // 2^x on the special-function unit (ex2.approx.ftz: -1e30 gives +0)
