@@ -122,14 +122,13 @@ _DTYPES = ("float32", "bfloat16", "float16")
 
 @dataclass(frozen=True)
 class RunConfig:
-    """Run options of the one-card serve and train slices, with the
-    reference's defaults.  The reference's fields that act only across
-    ranks (ZeRO, pipeline and sequence shards, matmul and attention
-    schedules, gradient compression), the optimizer choice (AdamW only
-    until LAMB is ported) and the attention chunk sizes of its jnp path
-    come back with the slices that use them (ROADMAP Queue A);
-    passing one is a TypeError rather than a setting that silently does
-    nothing."""
+    """Run options of the serve and train slices, with the reference's
+    defaults.  The reference's fields that the port does not run yet
+    (pipeline and sequence shards, the attention schedules), the optimizer
+    choice (AdamW only until LAMB is ported) and the attention chunk sizes
+    of its jnp path come back with the slices that use them (ROADMAP
+    Queue A); passing one is a TypeError rather than a setting that
+    silently does nothing."""
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     # Per-block activation checkpointing of the train loss: "none" keeps
@@ -163,6 +162,14 @@ class RunConfig:
     # Non-finite update skips tolerated per step before the train loop
     # backs off loss_scale or raises (the reference's recovery ladder).
     nan_skip_limit: int = 2
+    # ZeRO-1: the optimizer state of each leaf partitioned over the data and
+    # depth axes it is replicated on (optim/zero.py); zero_stage=1 is the
+    # same switch.
+    zero1: bool = False
+    zero_stage: int = 0
+    # Wire format of the gradient reductions: "none" only; the reference's
+    # "bf16" compression is not ported yet.
+    grad_compression: str = "none"
 
     def __post_init__(self):
         if self.param_dtype not in _DTYPES:
@@ -189,12 +196,27 @@ class RunConfig:
         if self.attn_impl not in ("jnp", "pallas", "auto"):
             raise ValueError(f"attn_impl must be 'jnp', 'pallas' or 'auto', "
                              f"got {self.attn_impl!r}")
+        if self.zero_stage not in (0, 1):
+            raise ValueError(f"zero_stage must be 0 or 1, "
+                             f"got {self.zero_stage}")
+        if self.grad_compression == "bf16":
+            raise NotImplementedError(
+                "grad_compression='bf16' is not supported by repro_torch "
+                "yet (ROADMAP Queue A, item A3: compressed gradient wire "
+                "formats)")
+        if self.grad_compression != "none":
+            raise ValueError(f"grad_compression must be 'none' or 'bf16', "
+                             f"got {self.grad_compression!r}")
         if self.fault_plan:
             # fault injection (runtime/faults.py of the JAX package) is not
             # ported yet: refuse a plan rather than silently ignore it
             raise NotImplementedError(
                 "fault_plan is not supported by repro_torch yet "
                 "(ROADMAP Queue A, item A3: fault injection)")
+
+    @property
+    def zero_enabled(self) -> bool:
+        return self.zero1 or self.zero_stage >= 1
 
     @property
     def master_weights(self) -> bool:

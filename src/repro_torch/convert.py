@@ -12,14 +12,14 @@ travels as numpy arrays, so the two packages never share random bits:
 ``grads_to_numpy`` give the model's params and gradients back in the same
 layout (float32), so tests compare them leaf by leaf.  Across ranks
 ``shard_params`` cuts the reference's global tree into one rank's blocks
-first.
+first, and ``unshard_params`` puts every rank's blocks back together.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .core.mesh import local_block
+from .core.mesh import AXES, axis_index, axis_size, local_block
 from .models.transformer import dense_param_specs
 
 
@@ -112,4 +112,42 @@ def shard_params(tree, cfg, ctx, coords):
            for name, arr in tree.items() if name != "blocks"}
     out["blocks"] = {name: cut(arr, block[name], lead=(cfg.num_layers,))
                      for name, arr in tree["blocks"].items()}
+    return out
+
+
+def unshard_params(trees, cfg, ctx):
+    """The inverse of ``shard_params``: the global tree (logical shapes,
+    the padding cut off) from ``trees``, every rank's tree of local blocks
+    (``params_to_numpy`` or ``grads_to_numpy`` of each rank's model) in
+    rank order.  A block a leaf repeats over the axes it is replicated on
+    is taken from every rank that holds it, so the ranks must agree there
+    (as synced gradients and params do)."""
+    sizes = {"data": ctx.data, "depth": ctx.depth, "row": ctx.rows,
+             "col": ctx.cols}
+    shape = tuple(sizes[a] for a in AXES)
+    if len(trees) != ctx.size:
+        raise ValueError(f"{len(trees)} trees for a mesh of {ctx.size}")
+    coords = [dict(zip(AXES, (int(c) for c in np.unravel_index(r, shape))))
+              for r in range(ctx.size)]
+    top, block = dense_param_specs(cfg, ctx)
+
+    def join(blocks, spec_entry, lead=()):
+        logical, padded, spec = spec_entry
+        spec = ((),) * len(lead) + spec
+        out = np.zeros(lead + padded, np.float32)
+        for arr, c in zip(blocks, coords):
+            idx = []
+            for dim, axes in enumerate(spec):
+                m = out.shape[dim] // axis_size(sizes, axes)
+                i = axis_index(sizes, c, axes)
+                idx.append(slice(i * m, (i + 1) * m))
+            out[tuple(idx)] = arr
+        return np.ascontiguousarray(out[tuple(slice(n) for n in
+                                              lead + logical)])
+
+    out = {name: join([t[name] for t in trees], top[name])
+           for name in trees[0] if name != "blocks"}
+    out["blocks"] = {name: join([t["blocks"][name] for t in trees],
+                                block[name], lead=(cfg.num_layers,))
+                     for name in trees[0]["blocks"]}
     return out

@@ -12,7 +12,7 @@ Tesseract (the paper) arranges the tensor-parallel group as a [q, q, d] grid
 The PyTorch port's own copy of ``repro.core.api``.  The port runs the
 ``tesseract`` and ``summa2d`` layouts over any ``data``, ``depth`` and
 ``rows == cols`` (``require_supported`` refuses the rest: a ``seq`` axis,
-``megatron1d`` and ``gspmd``).
+``megatron1d``, ``gspmd`` and the bf16 dW reduce-scatter).
 """
 from __future__ import annotations
 
@@ -29,12 +29,11 @@ AXIS_COL = "col"
 class ParallelContext:
     """Hashable parallelism descriptor.
 
-    The copy keeps the layout fields, the SUMMA ``matmul_schedule`` and the
-    attention data path.  The reference's gather-caching and dgrad knobs
-    (``cache_weight_gather``, ``cache_act_gather``, ``reduce_dgrad_in_op``,
-    ``dgrad_rs_bf16``) act only in the backward of a multi-rank matmul and
-    come back with training across ranks (ROADMAP Queue A); the seq-ring
-    ``attn_schedule`` comes back with the ``seq`` axis (item A3)."""
+    The copy keeps the layout fields, the SUMMA ``matmul_schedule``, the
+    attention data path, and the reference's gather-caching and dgrad knobs
+    of the multi-rank matmul's backward (``core/summa.py``).  The seq-ring
+    ``attn_schedule`` comes back with the ``seq`` axis (ROADMAP Queue A,
+    item A3)."""
 
     mode: str = "tesseract"  # tesseract | summa2d | megatron1d | gspmd
     data: int = 1
@@ -56,6 +55,18 @@ class ParallelContext:
     # the Hopper kernels, "auto" = the kernels on a CUDA device and the
     # plain versions on the CPU (kernels/ops.py::effective_attn_impl).
     attn_impl: str = "jnp"
+    # Backward of the fused SUMMA schedule: keep the forward's gathered W
+    # (over row) and / or gathered A (over col) for the backward instead of
+    # gathering them again (memory for bytes on the wire).
+    cache_weight_gather: bool = True
+    cache_act_gather: bool = False
+    # The paper's per-op dW all-reduce over (data, depth) inside the
+    # matmul's backward; False defers it to the step's one psum per leaf
+    # (runtime/steps.py::sync_grads).
+    reduce_dgrad_in_op: bool = True
+    # bf16 wire format of the dW reduce-scatter: not ported
+    # (require_supported refuses it).
+    dgrad_rs_bf16: bool = False
 
     # axis names (fixed; kept here so ops never hard-code strings)
     axis_data: str = AXIS_DATA
@@ -133,8 +144,9 @@ def require_supported(ctx: ParallelContext) -> None:
     """Raise NotImplementedError for a layout the port does not run.
 
     It runs ``tesseract`` and ``summa2d`` at any ``data``, ``depth`` and
-    ``rows == cols``; the ``seq`` axis (ring/striped attention) and the
-    ``megatron1d`` and ``gspmd`` op sets are ROADMAP Queue A, item A3."""
+    ``rows == cols``; the ``seq`` axis (ring/striped attention), the
+    ``megatron1d`` and ``gspmd`` op sets and the bf16 dW reduce-scatter are
+    ROADMAP Queue A, item A3."""
     if ctx.mode not in ("tesseract", "summa2d"):
         raise NotImplementedError(
             f"mode={ctx.mode!r} is not ported yet (ROADMAP Queue A, item A3: "
@@ -143,3 +155,8 @@ def require_supported(ctx: ParallelContext) -> None:
         raise NotImplementedError(
             f"seq={ctx.seq} is not ported yet (ROADMAP Queue A, item A3: "
             f"ring/striped attention over a seq axis)")
+    if ctx.dgrad_rs_bf16:
+        raise NotImplementedError(
+            "dgrad_rs_bf16=True (the bf16 dW reduce-scatter) is not ported "
+            "yet (ROADMAP Queue A, item A3: compressed gradient wire "
+            "formats)")

@@ -7,6 +7,35 @@ mesh's group over those axes.  Over a group of size 1 each one is the
 identity, as the reference's collectives are at one device.  Gathered and
 scattered blocks are ordered lexicographically over the axes, first axis
 outermost (the group's rank order, ``core/mesh.py``).
+
+Gradients.  The reference differentiates through its collectives by JAX's
+varying/invariant typing: a value is *invariant* over an axis when every
+member holds the same copy, and its cotangent is then the true one on every
+member; a *varying* value's cotangent is each member's own.  A ``psum`` of
+a varying value transposes to the identity, and ``pvary`` (which JAX
+inserts wherever an invariant value meets a varying one) transposes to a
+``psum`` (``repro/core/collectives.py``, ``grad_sync``).  PyTorch has no
+such typing, so each transpose is an ``autograd.Function`` here and the ops
+call ``pvary`` where the reference's typing inserts it:
+
+- ``psum``: all-reduce forward, identity backward;
+- ``pvary``: identity forward, all-reduce backward (the reference's
+  ``grad_sync`` is this on a param leaf; the train step applies its
+  backward to buckets of gradients, ``runtime/steps.py::sync_grads``);
+- ``all_gather_inv`` / ``all_gather_cat``: all-gather forward,
+  reduce-scatter backward: the gathered value meets a varying one, so the
+  ``pvary`` implied there sums the members' cotangents, and each member
+  keeps its own block;
+- ``psum_scatter_dim``: reduce-scatter forward, all-gather backward.
+
+A collective takes its Function only where autograd records it (grad
+enabled, an input that requires grad, a group of more than one member), so
+every serve step runs the plain collective.  ``pmax``, ``pmin``,
+``ppermute`` and the argmax are not differentiable: the loss takes its max
+under a stop-gradient, and the SUMMA ring's shifts sit inside
+``core/summa.py``'s own backward.  ``torch.distributed.nn``'s all-reduce is
+not used: its backward all-reduces again, which counts an already
+replicated cotangent once per member.
 """
 from __future__ import annotations
 
@@ -18,11 +47,7 @@ from .mesh import Mesh, _axes
 _INT32_MAX = torch.iinfo(torch.int32).max
 
 
-def all_gather_inv(mesh: Mesh, x, axes, *, axis: int = 0,
-                   tiled: bool = False):
-    """Gather ``x`` from every member of the group over ``axes``: stacked on
-    a new dim at ``axis`` (``tiled=False``) or concatenated along ``axis``.
-    Every member gets the same bytes."""
+def _gather(mesh: Mesh, x, axes, axis: int, tiled: bool):
     group = mesh.group(axes)
     if group is None:
         return x if tiled else x.unsqueeze(axis)
@@ -44,37 +69,7 @@ def all_gather_inv(mesh: Mesh, x, axes, *, axis: int = 0,
                          + x.shape[axis + 1:])
 
 
-def all_gather_cat(mesh: Mesh, x, axes, axis: int = 0):
-    """All-gather over (possibly several) axes, concatenated along ``axis``
-    in lexicographic order over ``axes``."""
-    return all_gather_inv(mesh, x, axes, axis=axis, tiled=True)
-
-
-def psum(mesh: Mesh, x, axes):
-    """Sum of ``x`` over the group (a new tensor; ``x`` is left as is)."""
-    return _all_reduce(mesh, x, axes, dist.ReduceOp.SUM)
-
-
-def pmax(mesh: Mesh, x, axes):
-    return _all_reduce(mesh, x, axes, dist.ReduceOp.MAX)
-
-
-def pmin(mesh: Mesh, x, axes):
-    return _all_reduce(mesh, x, axes, dist.ReduceOp.MIN)
-
-
-def _all_reduce(mesh, x, axes, op):
-    group = mesh.group(axes)
-    if group is None:
-        return x
-    y = x.clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(y, op=op, group=group)
-    return y
-
-
-def psum_scatter_dim(mesh: Mesh, x, axes, dim: int):
-    """Reduce-scatter over ``axes``: the sum over the group, of which this
-    member keeps block ``mesh.index(axes)`` of ``dim``."""
+def _scatter(mesh: Mesh, x, axes, dim: int):
     group = mesh.group(axes)
     if group is None:
         return x
@@ -87,6 +82,120 @@ def psum_scatter_dim(mesh: Mesh, x, axes, dim: int):
                       dtype=x.dtype, device=x.device)
     dist.reduce_scatter_tensor(out, blocks, group=group)
     return out.movedim(0, dim)
+
+
+def _all_reduce(mesh, x, axes, op):
+    group = mesh.group(axes)
+    if group is None:
+        return x
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=op, group=group)
+    return y
+
+
+def _records(mesh: Mesh, x, axes) -> bool:
+    """Whether autograd records this collective (and it is no identity)."""
+    return (torch.is_grad_enabled() and x.requires_grad
+            and mesh.group(axes) is not None)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, mesh, x, axes, axis, tiled):
+        fctx.args = (mesh, axes, axis % (x.ndim + (0 if tiled else 1)),
+                     tiled)
+        return _gather(mesh, x, axes, axis, tiled)
+
+    @staticmethod
+    def backward(fctx, g):
+        mesh, axes, axis, tiled = fctx.args
+        gx = _scatter(mesh, g, axes, axis)
+        return None, (gx if tiled else gx.squeeze(axis)), None, None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, mesh, x, axes, dim):
+        fctx.args = (mesh, axes, dim % x.ndim)
+        return _scatter(mesh, x, axes, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        mesh, axes, dim = fctx.args
+        return None, _gather(mesh, g, axes, dim, True), None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, mesh, x, axes):
+        return _all_reduce(mesh, x, axes, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(fctx, g):
+        return None, g, None
+
+
+class _Pvary(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, mesh, x, axes):
+        fctx.args = (mesh, axes)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        mesh, axes = fctx.args
+        return None, _all_reduce(mesh, g, axes, dist.ReduceOp.SUM), None
+
+
+def all_gather_inv(mesh: Mesh, x, axes, *, axis: int = 0,
+                   tiled: bool = False):
+    """Gather ``x`` from every member of the group over ``axes``: stacked on
+    a new dim at ``axis`` (``tiled=False``) or concatenated along ``axis``.
+    Every member gets the same bytes.  Backward: the reduce-scatter of the
+    members' cotangents."""
+    if _records(mesh, x, axes):
+        return _AllGather.apply(mesh, x, axes, axis, tiled)
+    return _gather(mesh, x, axes, axis, tiled)
+
+
+def all_gather_cat(mesh: Mesh, x, axes, axis: int = 0):
+    """All-gather over (possibly several) axes, concatenated along ``axis``
+    in lexicographic order over ``axes``."""
+    return all_gather_inv(mesh, x, axes, axis=axis, tiled=True)
+
+
+def psum(mesh: Mesh, x, axes):
+    """Sum of ``x`` over the group (a new tensor; ``x`` is left as is): a
+    varying value made invariant.  Backward: the identity."""
+    if _records(mesh, x, axes):
+        return _Psum.apply(mesh, x, axes)
+    return _all_reduce(mesh, x, axes, dist.ReduceOp.SUM)
+
+
+def pvary(mesh: Mesh, x, axes):
+    """``x`` marked varying over ``axes``: the identity forward, the sum of
+    the members' cotangents backward."""
+    if _records(mesh, x, axes):
+        return _Pvary.apply(mesh, x, axes)
+    return x
+
+
+
+def pmax(mesh: Mesh, x, axes):
+    return _all_reduce(mesh, x, axes, dist.ReduceOp.MAX)
+
+
+def pmin(mesh: Mesh, x, axes):
+    return _all_reduce(mesh, x, axes, dist.ReduceOp.MIN)
+
+
+def psum_scatter_dim(mesh: Mesh, x, axes, dim: int):
+    """Reduce-scatter over ``axes``: the sum over the group, of which this
+    member keeps block ``mesh.index(axes)`` of ``dim``.  Backward: the
+    all-gather of the members' cotangent blocks."""
+    if _records(mesh, x, axes):
+        return _PsumScatter.apply(mesh, x, axes, dim)
+    return _scatter(mesh, x, axes, dim)
 
 
 def axis_linear_index(mesh: Mesh, axes) -> int:

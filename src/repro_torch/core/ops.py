@@ -32,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from . import collectives as col
 from .api import ParallelContext
 from .mesh import Mesh
-from .summa import tesseract_matmul
+from .summa import mm_f32, tesseract_matmul
 
 
 @dataclass(frozen=True)
@@ -125,8 +125,11 @@ class TesseractOps:
         when num_kv_heads % q != 0, the ssm mixer's B and C).  The local
         product is no SUMMA contraction: ``torch.matmul`` accumulates in
         fp32 and rounds once, as the reference's ``_f32_einsum(...,
-        out_dtype=x.dtype)`` does."""
+        out_dtype=x.dtype)`` does.  The psum'd product is invariant over
+        col and meets the col-varying q heads, so it is ``pvary``'d there
+        (before the bias, which is a leaf of its own)."""
         y = col.psum(self.mesh, torch.matmul(x, w), "col")
+        y = col.pvary(self.mesh, y, "col")
         if b is not None:
             y = y + b
         return y
@@ -164,11 +167,12 @@ class TesseractOps:
 
     def rmsnorm(self, x, scale, eps=1e-5):
         """RMS norm scaled by ``1 + scale`` (zero-initialised scale), in
-        fp32: partial sums of squares psum'd over col."""
+        fp32: partial sums of squares psum'd over col; the col-invariant
+        ``inv`` is ``pvary``'d where it meets the col-varying x."""
         xf = x.float()
         ssq = col.psum(self.mesh, (xf * xf).sum(-1, keepdim=True), "col")
         h = x.shape[-1] * self.ctx.cols
-        inv = torch.rsqrt(ssq / h + eps)
+        inv = col.pvary(self.mesh, torch.rsqrt(ssq / h + eps), "col")
         return ((xf * inv) * (1.0 + scale.float())).to(x.dtype)
 
     def layernorm(self, x, scale, bias, eps=1e-5):
@@ -178,7 +182,8 @@ class TesseractOps:
         h = x.shape[-1] * self.ctx.cols
         mean = s1 / h
         var = s2 / h - mean * mean
-        y = (xf - mean) * torch.rsqrt(var + eps) * scale.float()
+        inv = col.pvary(self.mesh, torch.rsqrt(var + eps), "col")
+        y = (xf - col.pvary(self.mesh, mean, "col")) * inv * scale.float()
         if bias is not None:
             y = y + bias.float()
         return y.to(x.dtype)
@@ -208,22 +213,23 @@ class TesseractOps:
     # ---------------- losses / heads ----------------
     def ce_loss(self, x, w_head, labels, *, vocab_real: int,
                 loss_chunk: int = 512, label_mask=None):
-        """Chunked cross-entropy -> (loss_sum, count), fp32 scalars, at one
-        rank.
+        """Chunked cross-entropy -> (loss_sum, count), fp32 scalars.
 
-        x: [B, S, h] final hidden states; w_head: [v_pad, h] in the compute
-        dtype (cast once per step by the caller); labels: [B, S] ids;
-        label_mask: optional [B, S] weights (default all ones).  Each chunk
-        of ``loss_chunk`` tokens (shrunk to divide B*S, as the reference
-        does) forms fp32 logits as the reference's fp32-accumulated head
-        einsum does, with the padded vocab at -inf, and is recomputed in the
-        backward (the reference's ``@jax.checkpoint``), so the [tokens,
-        vocab] fp32 logits never exist whole.  Across ranks the loss (its
-        vocab-sharded logsumexp) comes with training across ranks."""
+        x: canonical activation [B_loc, S_loc, h/q]; w_head: this rank's
+        vocab shard [v_pad / (d q^2), h] (over (depth, row, col)) in the
+        compute dtype (cast once per step by the caller); labels: host
+        layout [B', S'] per (data, depth) group, cut by ``shard_tokens``;
+        label_mask: optional weights of the same layout (default all
+        ones).  Each chunk of ``loss_chunk`` local tokens (shrunk to divide
+        them, as the reference does) forms its fp32 logits as the
+        reference's fp32-accumulated head einsum does, with the padded
+        vocab at -inf, and is recomputed in the backward (the reference's
+        ``@jax.checkpoint``), so the [tokens, vocab] logits never exist
+        whole.  The sums are invariant over the model axes and still vary
+        over data (the caller psums them there)."""
         if self.mesh.size > 1:
-            raise NotImplementedError(
-                "ce_loss across ranks is not ported yet (ROADMAP Queue A: "
-                "training across ranks)")
+            return self._ce_loss_mesh(x, w_head, labels, vocab_real,
+                                      loss_chunk, label_mask)
         E = x.shape[0] * x.shape[1]
         xf = x.reshape(E, x.shape[-1])
         lab = labels.reshape(E).long()
@@ -245,6 +251,68 @@ class TesseractOps:
             loss_sum = loss_sum + ls
             count = count + cs
         return loss_sum, count
+
+    def _ce_loss_mesh(self, x, w_head, labels, vocab_real, loss_chunk,
+                      label_mask):
+        """``ce_loss`` over the vocab-sharded head (``repro/core/ops.py``
+        ``ce_loss``): each chunk's tokens are gathered over (depth, row)
+        and its features over col, every model rank forms the logits of its
+        vocab shard, ``m`` is the pmax of a stop-gradient max, the sum of
+        exps and the owner's label logit are psum'd over the model axes,
+        and each rank keeps its own token slice before one psum over
+        (depth, row)."""
+        E = x.shape[0] * x.shape[1]
+        xf = x.reshape(E, x.shape[-1])
+        lab = self.shard_tokens(labels).reshape(E).long()
+        lm = (torch.ones(E, dtype=torch.float32, device=x.device)
+              if label_mask is None
+              else self.shard_tokens(label_mask).reshape(E).to(
+                  torch.float32))
+        c = max(1, min(loss_chunk, E))
+        while E % c:
+            c -= 1
+        # the fp32 copy the backward's dX product reads (ROADMAP Queue C:
+        # dlogits is fp32), made once per step rather than once per chunk
+        w32 = w_head.detach().float()
+        loss_sum = count = None
+        for i in range(0, E, c):
+            ls, cs = checkpoint(self._ce_chunk_mesh, xf[i:i + c], w_head,
+                                w32, lab[i:i + c], lm[i:i + c], vocab_real,
+                                use_reentrant=False)
+            loss_sum = ls if loss_sum is None else loss_sum + ls
+            count = cs if count is None else count + cs
+        return loss_sum, count
+
+    def _ce_chunk_mesh(self, x_chunk, w_head, w32, l_chunk, m_chunk,
+                       vocab_real):
+        mesh, ctx = self.mesh, self.ctx
+        rows = (ctx.axis_depth, ctx.axis_row)
+        model = ctx.model_axes
+        xg = col.all_gather_cat(mesh, x_chunk, rows, axis=0)
+        xg = col.all_gather_inv(mesh, xg, ctx.axis_col, tiled=True, axis=1)
+        lg = col.all_gather_cat(mesh, l_chunk, rows, axis=0)
+        v_loc = w_head.shape[0]
+        v_off = mesh.index(model) * v_loc
+        logits = _HeadLogits.apply(xg, w_head, w32)       # [C, v_loc] fp32
+        vmask = (v_off + torch.arange(v_loc, device=xg.device)) < vocab_real
+        logits = logits.masked_fill(~vmask[None, :], float("-inf"))
+        m = col.pmax(mesh, logits.detach().amax(-1), model)
+        se = col.psum(mesh, torch.exp(logits - m[:, None]).sum(-1), model)
+        lse = torch.log(se) + m
+        idx = lg - v_off
+        valid = (idx >= 0) & (idx < v_loc)
+        ll = logits.gather(1, idx.clamp(0, v_loc - 1)[:, None])[:, 0]
+        ll = col.psum(mesh, torch.where(valid, ll, torch.zeros_like(ll)),
+                      model)
+        # lse and ll are invariant over the model axes; the slice below
+        # takes this rank's own tokens, which vary over (depth, row): the
+        # reference's implied pvary there, whose backward hands every rank
+        # the cotangents of the chunk's tokens
+        loss = col.pvary(mesh, lse, rows) - col.pvary(mesh, ll, rows)
+        mine = loss.narrow(0, mesh.index(rows) * x_chunk.shape[0],
+                           x_chunk.shape[0])
+        return (col.psum(mesh, (mine * m_chunk).sum(), rows),
+                col.psum(mesh, m_chunk.sum(), rows))
 
     def _row_axes(self, tokens_sharded: bool) -> tuple:
         """Axes the head's token rows are gathered over so every rank holds
@@ -302,6 +370,27 @@ class TesseractOps:
         # col), matching all_gather_cat's concatenation order
         return col.all_gather_cat(self.mesh, logits, self.ctx.model_axes,
                                   axis=1)
+
+
+class _HeadLogits(torch.autograd.Function):
+    """logits [C, v] float32 = x [C, h] @ w [v, h]^T, the operands in the
+    compute dtype summed in fp32 (``mm_f32``).  ``torch.mm`` with an fp32
+    result from bf16 operands has no autograd formula, so the backward is
+    written out: dX = dlogits W in fp32 from ``w32`` (w's fp32 copy),
+    rounded to x's dtype, and dW = dlogits^T X, rounded to w's dtype."""
+
+    @staticmethod
+    def forward(fctx, x, w, w32):
+        fctx.save_for_backward(x, w32)
+        fctx.w_dtype = w.dtype
+        return mm_f32(x, w.t())
+
+    @staticmethod
+    def backward(fctx, g):
+        x, w32 = fctx.saved_tensors
+        dx = torch.mm(g, w32).to(x.dtype)
+        dw = torch.mm(g.t(), x.float()).to(fctx.w_dtype)
+        return dx, dw, None
 
 
 def _chunk_loss(x_chunk, w32, labels, mask, vmask):

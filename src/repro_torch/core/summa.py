@@ -27,11 +27,28 @@ shifted around the col and row rings; the accumulator is cast to A's
 dtype once, after the last step.
 
 Either way C is the fp32 sum rounded once to A's dtype, as the
-reference's fp32-accumulated ``_einsum(..., out_dtype=a.dtype)`` is.  The
-backward at one rank is the reference's dA = dC W^T and dW = A^T dC, which
-it computes outside any Pallas kernel, so ``torch.matmul`` does it; across
-ranks the backward (its psum-scatters and the depth reduction of dW) comes
-with training across ranks (ROADMAP Queue A).
+reference's fp32-accumulated ``_einsum(..., out_dtype=a.dtype)`` is.
+
+Backward (the reference's ``_tess_bwd`` and ``_ring_bwd``), the paper's
+A' = C' W^T and W' = A^T C'.  At one rank ``torch.matmul`` forms both.
+Across ranks:
+
+``fused`` — gather A over col and W over row again (unless the forward
+kept them: ``cache_act_gather``, ``cache_weight_gather``), form the dA
+partials [T, E, F_loc] and psum-scatter them over col, and the fp32 dW
+partials [T, F_loc, G_loc] and psum-scatter them over row;
+
+``ring`` — two passes on shift-and-add accumulator rings: dA on the col
+ring while W streams on the row ring, then dW on the row ring while A
+streams on the col ring; each ends with one shift and the unskew.
+
+With ``reduce_dgrad_in_op`` dW is then psum'd over (data, depth) inside the
+op (the paper's per-op all-reduce; else the step's ``sync_grads`` does it
+once per leaf).  The reference forms these products in ``_einsum``, outside
+any Pallas kernel, and their layouts (W^T, A^T) are not kernel #1's, so
+``torch.mm`` forms them at the reference's precision (``mm_f32``): operands
+in the compute dtype summed in fp32, dA rounded once to dC's dtype, dW kept
+in fp32 until its reductions end.
 """
 from __future__ import annotations
 
@@ -74,13 +91,28 @@ def _perm_skew_a(q):
 
 
 @lru_cache(maxsize=None)
+def _perm_unskew_a(q):
+    return tuple((i * q + j, i * q + (i + j) % q)
+                 for i in range(q) for j in range(q))
+
+
+@lru_cache(maxsize=None)
 def _perm_skew_w(q):
     """dst (i, j) <- src ((i + j) % q, j): column j rotates up by j."""
     return tuple((((i + j) % q) * q + j, i * q + j)
                  for i in range(q) for j in range(q))
 
 
+@lru_cache(maxsize=None)
+def _perm_unskew_w(q):
+    return tuple((i * q + j, ((i + j) % q) * q + j)
+                 for i in range(q) for j in range(q))
+
+
 _RC = ("row", "col")
+# Axes W is replicated over, which its in-op dW all-reduce covers (the
+# reference's ``_dgrad_axes`` without a seq axis).
+DGRAD_AXES = ("data", "depth")
 
 
 def _ring_fwd(mesh: Mesh, a2, w):
@@ -110,9 +142,13 @@ def _ring_fwd(mesh: Mesh, a2, w):
 def _fused_fwd(mesh: Mesh, a2, w):
     if mesh.size == 1:
         return tesseract_mm(a2, w, out_dtype=a2.dtype)
-    ag = col.all_gather_inv(mesh, a2, "col")          # [T, E, F_loc]
-    wg = col.all_gather_inv(mesh, w, "row")           # [T, F_loc, G_loc]
-    return tesseract_mm(ag, wg, out_dtype=a2.dtype)
+    return tesseract_mm(*_gathers(mesh, a2, w), out_dtype=a2.dtype)
+
+
+def _gathers(mesh: Mesh, a2, w):
+    """A gathered over col [T, E, F_loc] and W over row [T, F_loc, G_loc]."""
+    return col.all_gather_inv(mesh, a2, "col"), col.all_gather_inv(mesh, w,
+                                                                    "row")
 
 
 def _forward(ctx: ParallelContext, mesh: Mesh, a2, w):
@@ -122,30 +158,105 @@ def _forward(ctx: ParallelContext, mesh: Mesh, a2, w):
     return _fused_fwd(mesh, a2, w)
 
 
+def mm_f32(a, b):
+    """a @ b [m, n] float32 from operands in their (one) dtype, summed in
+    fp32: the reference's ``preferred_element_type=float32`` product.  A
+    bf16 product on the card runs on the tensor cores with an fp32 result;
+    on the CPU (tests only) the bf16 operands are widened, which is exact."""
+    if a.dtype == torch.float32:
+        return torch.mm(a, b)
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+def _fused_bwd(ctx: ParallelContext, mesh: Mesh, ar, wr, dc):
+    ag = ar if ctx.cache_act_gather else col.all_gather_inv(mesh, ar, "col")
+    wg = wr if ctx.cache_weight_gather else col.all_gather_inv(mesh, wr,
+                                                               "row")
+    # dA_t = dC W_t^T for every block t of A's features; member t of the
+    # col group keeps the sum of the dA_t
+    da = torch.stack([mm_f32(dc, wt.t()) for wt in wg]).to(dc.dtype)
+    da = col.psum_scatter_dim(mesh, da, "col", 0)[0]
+    # dW_t = A_t^T dC, in fp32 through the reduce-scatter over row
+    dw = torch.stack([mm_f32(at.t(), dc) for at in ag])
+    return da, col.psum_scatter_dim(mesh, dw, "row", 0)[0]
+
+
+def _ring_bwd(mesh: Mesh, a2, w, dc):
+    """dA and dW on the forward's rings, in two passes (the reference's
+    ``_ring_bwd``).  Each step's piece is added to the accumulator that
+    arrives from the next rank, so each rank ends with its own block after
+    one more shift and the unskew.  A step's two shifts (the streamed
+    operand and the accumulator) are in flight while its product runs; every
+    rank posts them in the same order."""
+    q = mesh.sizes["col"]
+
+    def ring(stream, stream_axis, acc_axis, piece):
+        acc = None
+        for s in range(q):
+            works = []
+            if s < q - 1:
+                nxt, wk = col.ppermute(mesh, stream, stream_axis,
+                                       _perm_shift(q), wait=False)
+                works += wk
+            if acc is not None:
+                arrived, wk = col.ppermute(mesh, acc, acc_axis,
+                                           _perm_shift(q), wait=False)
+                works += wk
+            p = piece(stream)
+            for work in works:          # the sent blocks stay alive till here
+                work.wait()
+            acc = p if acc is None else arrived + p
+            if s < q - 1:
+                stream = nxt
+        return col.ppermute(mesh, acc, acc_axis, _perm_shift(q))
+
+    # pass 1: W streams on the row ring, dA pieces ride the col ring
+    da = ring(col.ppermute(mesh, w, _RC, _perm_skew_w(q)), "row", "col",
+              lambda wt: mm_f32(dc, wt.t()).to(dc.dtype))
+    da = col.ppermute(mesh, da, _RC, _perm_unskew_a(q))
+    # pass 2: A streams on the col ring, fp32 dW pieces ride the row ring
+    dw = ring(col.ppermute(mesh, a2, _RC, _perm_skew_a(q)), "col", "row",
+              lambda at: mm_f32(at.t(), dc))
+    return da, col.ppermute(mesh, dw, _RC, _perm_unskew_w(q))
+
+
 class _TesseractMatmul(torch.autograd.Function):
 
     @staticmethod
     def forward(fctx, ctx, mesh, a2, w):
-        fctx.mesh = mesh
-        fctx.save_for_backward(a2, w)
-        return _forward(ctx, mesh, a2, w)
+        fctx.ctx, fctx.mesh = ctx, mesh
+        if mesh.size == 1 or effective_schedule(ctx, a2.shape[0]) == "ring":
+            fctx.save_for_backward(a2, w)
+            return _forward(ctx, mesh, a2, w)
+        ag, wg = _gathers(mesh, a2, w)
+        fctx.save_for_backward(ag if ctx.cache_act_gather else a2,
+                               wg if ctx.cache_weight_gather else w)
+        return tesseract_mm(ag, wg, out_dtype=a2.dtype)
 
     @staticmethod
     def backward(fctx, dc):
-        if fctx.mesh.size > 1:
-            raise NotImplementedError(
-                "the backward of tesseract_matmul across ranks (its "
-                "psum-scatters and the depth reduction of dW) is not ported "
-                "yet (ROADMAP Queue A: training across ranks)")
-        a2, w = fctx.saved_tensors
-        return None, None, torch.matmul(dc, w.t()), torch.matmul(a2.t(), dc)
+        ar, wr = fctx.saved_tensors
+        ctx, mesh = fctx.ctx, fctx.mesh
+        if mesh.size == 1:
+            return None, None, torch.matmul(dc, wr.t()), torch.matmul(ar.t(),
+                                                                      dc)
+        dc = dc.contiguous()
+        if effective_schedule(ctx, dc.shape[0]) == "ring":
+            da, dw = _ring_bwd(mesh, ar, wr, dc)
+        else:
+            da, dw = _fused_bwd(ctx, mesh, ar, wr, dc)
+        if ctx.reduce_dgrad_in_op:
+            dw = col.psum(mesh, dw, DGRAD_AXES)
+        return None, None, da, dw.to(wr.dtype)
 
 
 def tesseract_matmul(ctx: ParallelContext, mesh: Mesh, a, w):
     """Distributed C = A @ W per Tesseract Algorithm 3 (local blocks; see
-    the module doc) on ``mesh``, the schedule from ``ctx``.
-    Differentiable at one rank; without autograd (serving) it skips the
-    autograd node, whose host cost each of a step's projections pays."""
+    the module doc) on ``mesh``, the schedule from ``ctx``.  Without
+    autograd (serving) it skips the autograd node, whose host cost each of
+    a step's projections pays."""
     lead = a.shape[:-1]
     a2 = a.reshape(-1, a.shape[-1]).contiguous()
     w = w.contiguous()

@@ -226,9 +226,9 @@ def _profile_decode(engine, rng, steps, rank0):
 
 
 if __name__ == "__main__":
-    import torch.distributed as dist
+    from ..core.mesh import shutdown_distributed
+    engine = None
     try:
-        main()
+        engine = main()
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        shutdown_distributed(*([engine.mesh] if engine is not None else []))

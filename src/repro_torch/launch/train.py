@@ -1,20 +1,35 @@
-"""Training launcher of the PyTorch port: one device, the model's own
-train loop (the GPU unless ``--device cpu``).
+"""Training launcher of the PyTorch port: one card, a Tesseract mesh of
+cards under ``torchrun``, or the CPU with ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
         --steps 10 --seq 2048 --batch 8 --compute-dtype bfloat16
 
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch yi-6b --rows 2 --cols 2 \
+        --steps 10 --seq 2048 --batch 8 --compute-dtype bfloat16 \
+        [--matmul-schedule ring] [--profile-step]
+
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \
         --reduced --device cpu --steps 4 --seq 32 --batch 4
 
-Weights are random, from a fixed seed; data is the step-keyed synthetic
-stream.  Only the one-device layout runs so far, so the reference's mesh,
-ZeRO, pipeline, sequence-shard, checkpoint and fault flags come back with
-the slices that port them (ROADMAP Queue A).
+Weights are random, from a fixed seed, the same global weights on every
+layout (each rank draws them and keeps its blocks); data is the
+step-keyed synthetic stream, the same batch on every rank, of which each
+keeps its block.  Under ``torchrun`` (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``) every rank runs the same loop on the [data, depth, rows,
+cols] mesh, NCCL on the cards and gloo on the CPU; rank 0 prints the
+losses, grad norms, step time p50, tokens/s, the model-FLOPs share of the
+cards' bf16 peak and every rank's peak memory, and with
+``--profile-step`` one more step's device time under torch.profiler (its
+NCCL kernels apart).  The reference's pipeline, sequence-shard,
+checkpoint and fault-injection flags raise (ROADMAP Queue A, item A3).
 """
 from __future__ import annotations
 
 import argparse
+import json
+
+H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak of one H100 SXM
 
 
 def main(argv=None):
@@ -42,12 +57,48 @@ def main(argv=None):
     ap.add_argument("--accum", type=int, default=1,
                     help="gradient-accumulation microsteps per optimizer "
                          "step")
+    ap.add_argument("--data", type=int, default=1)
+    ap.add_argument("--depth", type=int, default=1)
+    ap.add_argument("--rows", type=int, default=1)
+    ap.add_argument("--cols", type=int, default=1)
+    ap.add_argument("--matmul-schedule", default="fused",
+                    choices=("fused", "ring", "auto"),
+                    help="SUMMA schedule: gathers + kernel #1, or the "
+                         "skewed ring + kernel #2 per step")
+    ap.add_argument("--zero1", action="store_true",
+                    help="ZeRO-1: optimizer state sharded over the data "
+                         "and depth axes each leaf is replicated on")
+    ap.add_argument("--zero-stage", type=int, default=0, choices=(0, 1))
+    ap.add_argument("--profile-step", action="store_true",
+                    help="after the run, profile one more step on rank 0")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when asked for")
+    # the reference's flags the port does not run yet
+    ap.add_argument("--pipe", type=int, default=1)
+    ap.add_argument("--seq-shards", type=int, default=1)
+    ap.add_argument("--ckpt", default="")
+    ap.add_argument("--fault-plan", default="")
     args = ap.parse_args(argv)
+    for flag, off in (("--pipe", args.pipe == 1),
+                      ("--seq-shards", args.seq_shards == 1),
+                      ("--ckpt", not args.ckpt),
+                      ("--fault-plan", not args.fault_plan)):
+        if not off:
+            raise NotImplementedError(
+                f"{flag} is not supported by repro_torch yet (ROADMAP "
+                f"Queue A, item A3)")
+
+    from ..core.mesh import init_distributed
+    dev = init_distributed(args.device)
+
+    import numpy as np
+    import torch
 
     from ..configs.base import RunConfig, ShapeSpec
+    from ..core import collectives as col
     from ..core.api import ParallelContext
+    from ..core.mesh import AXES, Mesh
+    from ..kernels import ops as kops
     from ..models.registry import build_model, get_arch, get_reduced
     from ..runtime.train_loop import train
 
@@ -55,15 +106,124 @@ def main(argv=None):
     run = RunConfig(param_dtype=args.param_dtype,
                     compute_dtype=args.compute_dtype, loss_chunk=128,
                     lr=args.lr, loss_scale=args.loss_scale,
-                    attn_impl=args.attn_impl, accum_steps=args.accum)
-    ctx = ParallelContext(attn_impl=run.attn_impl)
-    model = build_model(arch.model, ctx, run, device=args.device, seed=0)
+                    attn_impl=args.attn_impl, accum_steps=args.accum,
+                    zero1=args.zero1, zero_stage=args.zero_stage)
+    ctx = ParallelContext(data=args.data, depth=args.depth, rows=args.rows,
+                          cols=args.cols,
+                          matmul_schedule=args.matmul_schedule,
+                          attn_impl=run.attn_impl)
+    mesh = Mesh(ctx)
+    rank0 = mesh.rank == 0
+    model = build_model(arch.model, ctx, run, device=dev, seed=0, mesh=mesh)
     shape = ShapeSpec("train", seq_len=args.seq, global_batch=args.batch,
                       kind="train")
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
     res = train(model, shape, steps=args.steps, log_every=10)
-    print(f"final loss {res.losses[-1]:.4f} after {len(res.losses)} steps")
+    launches = dict(kops.LAUNCHES)
+    peaks = None
+    if cuda:
+        torch.cuda.synchronize()
+        peak = torch.tensor([torch.cuda.max_memory_allocated() / 2**30],
+                            dtype=torch.float64, device=dev)
+        peaks = col.all_gather_inv(mesh, peak, AXES, tiled=True).tolist()
+    if rank0:
+        print(f"final loss {res.losses[-1]:.4f} after {len(res.losses)} "
+              f"steps")
+        print(f"losses {[round(x, 4) for x in res.losses]} grad norms "
+              f"{[round(x, 4) for x in res.grad_norms]} step ms "
+              f"{[round(t * 1e3, 1) for t in res.step_times]}")
+        p50 = float(np.median(res.step_times))
+        flops = train_flops(model, shape)
+        print(f"mesh: data={ctx.data} depth={ctx.depth} rows={ctx.rows} "
+              f"cols={ctx.cols} matmul_schedule={ctx.matmul_schedule} "
+              f"zero1={run.zero_enabled} compute={run.compute_dtype}; "
+              f"step p50 {p50 * 1e3:.1f} ms (first "
+              f"{res.step_times[0] * 1e3:.1f} ms), tokens/s "
+              f"{shape.seq_len * shape.global_batch / p50:.1f}; model "
+              f"FLOPs per step {flops:.4g}"
+              + (f", {flops / p50 / (mesh.size * H100_BF16_FLOPS):.4f} of "
+                 f"{mesh.size} x 989 TFLOP/s bf16 "
+                 f"({torch.cuda.get_device_name(dev)})" if cuda else "")
+              + f"; launches per rank {launches}"
+              + (f"; peak device memory per rank GiB "
+                 f"{[round(p, 2) for p in peaks]}" if peaks else ""),
+              flush=True)
+    if args.profile_step:
+        profile = _profile_step(model, shape, rank0)
+        if rank0:
+            print(json.dumps(profile), flush=True)
     return res
 
 
+def train_flops(model, shape) -> float:
+    """Model FLOPs of one train step: 6 N per token for the matmuls (N
+    counts the head but not the embedding table, whose lookup multiplies
+    nothing) and the attention's 4 D per causal (q, k) pair per q head
+    forward and 8 D backward (QK^T recomputed in both backward passes is
+    not counted)."""
+    cfg = model.cfg
+    pairs = shape.seq_len * (shape.seq_len + 1) // 2
+    n_matmul = cfg.param_count() - cfg.vocab_size * cfg.d_model
+    return (6 * n_matmul * shape.seq_len * shape.global_batch
+            + 12 * model.D * pairs * cfg.num_heads * shape.global_batch
+            * cfg.num_layers)
+
+
+def _profile_step(model, shape, rank0):
+    """One train step (after a warm-up step) under torch.profiler on rank 0
+    (every rank runs both): device time by kernel, the NCCL kernels' sum
+    and the idle share."""
+    import contextlib
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..data.pipeline import SyntheticLMStream
+    from ..runtime.steps import build_train_step, init_opt_state
+    step = build_train_step(model, shape)
+    opt = init_opt_state(model)
+    stream = SyntheticLMStream(model.cfg.vocab_size, shape.global_batch,
+                               shape.seq_len, seed=0)
+    batch = {k: torch.from_numpy(v).to(model.device)
+             for k, v in stream.batch(100).items()}
+    step(opt, batch)
+    torch.cuda.synchronize()
+    prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            if rank0 else contextlib.nullcontext())
+    with prof:
+        t0 = time.perf_counter()
+        step(opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if not rank0:
+        return None
+    # device kernels only: "nccl:*" are annotations over the NCCL kernels
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0
+                      and not e.key.startswith("nccl:")),
+                     key=lambda kv: -kv[1])
+    busy = sum(ms for _, ms, _ in kernels)
+    nccl = sum(ms for k, ms, _ in kernels if "nccl" in k.lower())
+    return {"profile": f"train step on rank 0, {model.cfg.name} seq "
+                       f"{shape.seq_len} x batch {shape.global_batch}",
+            "wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": (1.0 - busy / wall_ms) if busy else None,
+            "nccl_ms": nccl,
+            "top_kernels_ms_calls": [[k[:80], ms, n]
+                                     for k, ms, n in kernels[:14]]}
+
+
 if __name__ == "__main__":
-    main()
+    from ..core.mesh import shutdown_distributed
+    try:
+        main()
+    finally:
+        shutdown_distributed()

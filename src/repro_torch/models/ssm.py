@@ -115,8 +115,9 @@ class MambaLM(nn.Module):
         super().__init__()
         if ctx.size > 1:
             raise NotImplementedError(
-                "MambaLM runs at one rank (ROADMAP Queue A: the ssm family "
-                "across ranks, with the seq-sharded prefill branches)")
+                "MambaLM runs at one rank (ROADMAP Queue A, item A1: the ssm "
+                "family across ranks, with the seq-sharded prefill "
+                "branches)")
         self.mesh = mesh if mesh is not None else Mesh(ctx)
         self.cfg, self.ctx, self.run = cfg, ctx, run
         self.device = device

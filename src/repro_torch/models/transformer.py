@@ -15,9 +15,11 @@ every rank of the mesh passes alike: ``prefill`` (bucketed, right-padded
 prompts with true ``lengths``; the sequence sharded over (depth, row)) and
 ``decode_paged`` (one token per slot against the rank's KV group's
 partition of the paged pool, updated in place).  Training entry point,
-at one rank: ``loss`` (the mean next-token cross-entropy of a batch,
-differentiable in every parameter).  The dense static decode loop and the
-chunked-prefill path are not ported yet (ROADMAP Queue A).
+on one rank or across the mesh: ``loss`` (the mean next-token
+cross-entropy of a batch, differentiable in every local parameter; the
+step syncs the gradients of replicated leaves, ``runtime/steps.py``).  The
+dense static decode loop and the chunked-prefill path are not ported yet
+(ROADMAP Queue A).
 """
 from __future__ import annotations
 
@@ -73,7 +75,7 @@ def dense_param_specs(cfg: ModelConfig, ctx: ParallelContext):
     if cfg.mlp_glu:
         block["w_gate"] = same((h, ff), w2d)
     if cfg.use_bias:
-        block.update(bq=same((Hp * D,), vec), bv=same((kv * D,), kv_b),
+        block.update(bq=((H * D,), (Hp * D,), vec), bv=same((kv * D,), kv_b),
                      bo=same((h,), vec), b_up=same((ff,), vec),
                      b_down=same((h,), vec))
     if cfg.norm == "layernorm":
@@ -287,17 +289,18 @@ class DenseLM(nn.Module):
 
     def loss(self, batch):
         """Mean next-token cross-entropy of ``batch`` = {"tokens", "labels":
-        [B, S] int, optional "mask": [B, S]}: embed, the blocks at
-        positions 0..S-1, the final norm and the chunked CE over the
-        compute-dtype head, loss_sum / max(count, 1).  With remat="full"
-        each block is recomputed in the backward.  One rank only: training
-        across ranks is ROADMAP Queue A."""
-        if self.mesh.size > 1:
-            raise NotImplementedError(
-                "DenseLM.loss across ranks is not ported yet (ROADMAP Queue "
-                "A: training across ranks)")
+        [B, S] int, optional "mask": [B, S]}, host layout, the same on every
+        rank: embed, the blocks at positions 0..S-1, the final norm and the
+        chunked CE over the compute-dtype head, loss_sum / max(count, 1).
+        With remat="full" each block is recomputed in the backward.  Across
+        ranks each rank cuts its (data, depth) block of the batch (the
+        reference's ``spec_tokens_in``; embed and the loss apply the row
+        factor) and the sums are psum'd over data, so the loss is the same
+        on every rank."""
         ops = make_ops(self.ctx, self.mesh, Plan.for_shape("train"))
-        x = ops.embed(batch["tokens"], self.embed).to(self.cdt)
+        cut = ops.tokens_in_axes()
+        x = ops.embed(ops.host_block(batch["tokens"], cut),
+                      self.embed).to(self.cdt)
         qpos = ops.positions(x.shape[1], device=x.device)
 
         def block(blk, x):
@@ -309,11 +312,26 @@ class DenseLM(nn.Module):
             else:
                 x = block(blk, x)
         x = self._final(ops, x)
+        mask = batch.get("mask")
         loss_sum, count = ops.ce_loss(
-            x, self.head.to(self.cdt), batch["labels"],
+            x, self.head.to(self.cdt), ops.host_block(batch["labels"], cut),
             vocab_real=self.cfg.vocab_size, loss_chunk=self.run.loss_chunk,
-            label_mask=batch.get("mask"))
+            label_mask=None if mask is None else ops.host_block(mask, cut))
+        loss_sum = col.psum(self.mesh, loss_sum, "data")
+        count = col.psum(self.mesh, count, "data")
         return loss_sum / count.clamp(min=1.0)
+
+    def tess_weight_names(self) -> set:
+        """Names of the block params that flow only through
+        ``tesseract_matmul``, whose dW the op reduces over (data, depth)
+        when ``reduce_dgrad_in_op`` (the reference's
+        ``tess_weight_names``)."""
+        names = {"wq", "wo", "w_up", "w_down"}
+        if self.cfg.mlp_glu:
+            names.add("w_gate")
+        if self.kv_shard:
+            names.update({"wk", "wv"})
+        return names
 
     # ------------------------------------------------------------- decode
     def paged_cache_shape(self, num_blocks: int, block_size: int):

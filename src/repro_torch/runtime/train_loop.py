@@ -1,7 +1,9 @@
 """Training loop of the port (counterpart of ``repro.runtime.train_loop``).
 
-One card, the model's own parameters: each step copies the step-keyed
-synthetic batch to the model's device and runs ``build_train_step``.  The
+The model's own parameters, on one card or on every rank of its mesh:
+each step copies the step-keyed synthetic batch, the same on every rank,
+to the model's device and runs ``build_train_step``, in which each rank
+keeps its block of the batch.  Rank 0 prints.  The
 reference's non-finite recovery ladder is kept: a skipped step (the step's
 guard left params and optimizer state bit-identical) retries the SAME
 batch up to ``run.nan_skip_limit`` times, then halves the static loss scale
@@ -19,8 +21,7 @@ import numpy as np
 import torch
 
 from ..data.pipeline import SyntheticLMStream
-from ..optim.adamw import adamw_init
-from .steps import build_train_step
+from .steps import build_train_step, init_opt_state
 
 
 @dataclass
@@ -35,12 +36,13 @@ class TrainResult:
 
 def train(model, shape, *, steps: int, seed: int = 0, log_every: int = 10,
           accum_steps: int | None = None, ckpt_dir=None) -> TrainResult:
-    """Run ``steps`` optimizer steps of ``model`` (a DenseLM, on its device)
-    on ``SyntheticLMStream(vocab, shape.global_batch, shape.seq_len,
-    seed=seed)``, from the model's current parameters and a fresh AdamW
-    state.  ``accum_steps`` defaults to ``model.run.accum_steps``.  A step's
-    time is the host clock around the step, which ends in a device sync
-    (the step reads its loss)."""
+    """Run ``steps`` optimizer steps of ``model`` (a DenseLM, on its device
+    and mesh) on ``SyntheticLMStream(vocab, shape.global_batch,
+    shape.seq_len, seed=seed)``, from the model's current parameters and a
+    fresh AdamW state (ZeRO-1 slices when ``run.zero_enabled``).
+    ``accum_steps`` defaults to ``model.run.accum_steps``.  A step's time
+    is the host clock around the step, which ends in a device sync (the
+    step reads its loss)."""
     if ckpt_dir is not None:
         raise NotImplementedError(
             "checkpoint/restart is not supported by repro_torch yet "
@@ -51,8 +53,13 @@ def train(model, shape, *, steps: int, seed: int = 0, log_every: int = 10,
     step_fn = build_train_step(model, shape, accum_steps=accum)
     stream = SyntheticLMStream(model.cfg.vocab_size, shape.global_batch,
                                shape.seq_len, seed=seed)
-    opt = adamw_init(list(model.parameters()), master=run.master_weights)
+    opt = init_opt_state(model)
     result = TrainResult()
+    rank0 = model.mesh.rank == 0
+
+    def say(msg):
+        if rank0:
+            print(msg, flush=True)
 
     def run_step(batch, step):
         nonlocal step_fn, loss_scale
@@ -64,7 +71,7 @@ def train(model, shape, *, steps: int, seed: int = 0, log_every: int = 10,
             # params/opt are bit-identical: retry the SAME step-keyed batch
             attempts += 1
             result.nan_skips += 1
-            print(f"[fault] step {step}: non-finite grads/loss, update "
+            say(f"[fault] step {step}: non-finite grads/loss, update "
                   f"skipped (retry {attempts}/{run.nan_skip_limit}, "
                   f"loss_scale={loss_scale:g})")
             if attempts <= run.nan_skip_limit:
@@ -72,7 +79,7 @@ def train(model, shape, *, steps: int, seed: int = 0, log_every: int = 10,
             if loss_scale > 1.0:
                 loss_scale = max(1.0, loss_scale / 2.0)
                 result.loss_scale_backoffs += 1
-                print(f"[fault] step {step}: backing loss_scale off to "
+                say(f"[fault] step {step}: backing loss_scale off to "
                       f"{loss_scale:g} and rebuilding the step")
                 step_fn = build_train_step(model, shape, accum_steps=accum,
                                            loss_scale=loss_scale)
@@ -96,6 +103,6 @@ def train(model, shape, *, steps: int, seed: int = 0, log_every: int = 10,
         result.grad_norms.append(metrics["grad_norm"])
         result.last_step = step
         if log_every and step % log_every == 0:
-            print(f"step {step} loss {loss:.4f} "
+            say(f"step {step} loss {loss:.4f} "
                   f"gnorm {metrics['grad_norm']:.3f} ({dt * 1e3:.0f} ms)")
     return result

@@ -8,8 +8,9 @@ The mesh is [rows, cols, depth] = [2, 2, 1] at 4 ranks and [2, 2, 2] at 8
 (``--layout data,depth,rows,cols`` sets another).  Checks:
 
 - ``collectives``: each collective of ``core/collectives.py`` against a
-  numpy model of the same ranks' inputs, and the token rows embed's
-  reduce-scatter keeps against ``shard_tokens``;
+  numpy model of the same ranks' inputs, the backward of each
+  differentiable one against a numpy model of its transpose, and the
+  token rows embed's reduce-scatter keeps against ``shard_tokens``;
 - ``summa_exact``: ``tesseract_matmul`` on the fused schedule (kernel #1)
   and the ring (kernel #2) against the unsharded product, fp32 within
   1e-5 of the product's largest entry (and bf16 within 1e-2 on the card);
@@ -24,7 +25,17 @@ The mesh is [rows, cols, depth] = [2, 2, 1] at 4 ranks and [2, 2, 2] at 8
   kv_heads, params (an .npz of the reference's global tree, from
   ``flatten_params``), n_slots, block_size, num_blocks, max_seq_len,
   preempt) gives other cases, and ``--out FILE`` receives every case's ids
-  (rank 0 writes).
+  (rank 0 writes); the loss runs across ranks and equals one rank's;
+- ``train_parity``: training on the mesh against the one-rank port on the
+  same global weights and batch, for each arch case (on the CPU reduced
+  yi-6b, KV heads sharded, and reduced smollm-360m, KV replicated and q
+  heads padded; on the card yi-6b at full width, 2 layers), on the fused
+  and the ring schedule, with ``reduce_dgrad_in_op`` on and off (and once
+  with the fused backward's cache knobs flipped): the loss, every synced
+  gradient leaf reassembled (``convert.unshard_params``), and the params
+  after 2 AdamW steps; then ZeRO-1 against the replicated
+  optimizer (params after 2 steps, and each leaf's state slice 1/zn of its
+  block).  fp32; bounds in ``TRAIN_TOL``.
 
 Every rank takes the same decisions from the same values, so a failed
 check fails on every rank at once: the error is reduced over the mesh
@@ -42,18 +53,22 @@ import time
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..configs.base import RunConfig
-from ..convert import params_from_jax, shard_params
+from ..configs.base import ShapeSpec
+from ..convert import (grads_to_numpy, params_from_jax, params_to_numpy,
+                       shard_params, unshard_params)
 from ..core import collectives as col
 from ..core.api import ParallelContext
-from ..core.mesh import AXES, GROUP_AXES, Mesh, init_distributed
+from ..core.mesh import (AXES, GROUP_AXES, Mesh, init_distributed,
+                         shutdown_distributed)
 from ..core.ops import Plan, make_ops
 from ..core.summa import _perm_shift, _perm_skew_a, _perm_skew_w
 from ..core.summa import tesseract_matmul
 from ..kernels import ops as kops
 from ..models.registry import build_model, get_arch, get_reduced
+from ..runtime.steps import (build_train_step, init_opt_state, leaf_layouts,
+                             sync_grads)
 
 LAYOUTS = {1: (1, 1, 1, 1), 4: (1, 1, 2, 2), 8: (1, 2, 2, 2)}
 
@@ -175,6 +190,38 @@ def check_collectives(mesh: Mesh, dev, args):
              .cpu().numpy(), f"embed vs shard_tokens ({plan.kind})")
     t = col.broadcast_scalar(mesh, float(mesh.rank + 7), dev)
     _agree(mesh, dev, t == 7.0, "broadcast_scalar")
+    # backward: member m's cotangent of the output is cot[m]; the gradient
+    # of x is the transpose applied to the group's cotangents
+    for axes in GROUP_AXES:
+        mem = _members(mesh, axes)
+        n, i = len(mem), mem.index(mesh.rank)
+        cot = rng.standard_normal((mesh.size, 4 * n, 6)).astype(np.float32)
+
+        def grad_of(fn, c):
+            xr = x.clone().requires_grad_(True)
+            (fn(xr) * torch.from_numpy(c).to(dev)).sum().backward()
+            return xr.grad
+
+        close(grad_of(lambda t: col.psum(mesh, t, axes),
+                      cot[mesh.rank, :4]), cot[mesh.rank, :4],
+              f"psum backward (identity) {axes}")
+        close(grad_of(lambda t: col.pvary(mesh, t, axes),
+                      cot[mesh.rank, :4]), cot[mem, :4].sum(0),
+              f"pvary backward (psum) {axes}")
+        close(grad_of(lambda t: col.all_gather_cat(mesh, t, axes),
+                      cot[mesh.rank]),
+              cot[mem, 4 * i:4 * (i + 1)].sum(0),
+              f"all_gather_cat backward (reduce-scatter) {axes}")
+        stacked = cot[:, :4 * n].reshape(mesh.size, n, 4, 6)
+        close(grad_of(lambda t: col.all_gather_inv(mesh, t, axes, axis=1),
+                      np.moveaxis(stacked[mesh.rank], 0, 1)),
+              stacked[mem, i].sum(0),
+              f"all_gather_inv axis=1 backward (reduce-scatter) {axes}")
+        close(grad_of(lambda t: col.psum_scatter_dim(
+                  mesh, t.repeat(1, n), axes, 1), cot[mesh.rank, :4]),
+              np.concatenate([cot[r, :4] for r in mem], axis=1).reshape(
+                  4, n, 6).sum(1),
+              f"psum_scatter_dim backward (all-gather) {axes}")
     log(mesh, f"PASS collectives ({n_checked} comparisons on "
               f"{mesh.size} ranks)")
 
@@ -422,14 +469,17 @@ def check_serve_engine(mesh: Mesh, dev, args):
                f"{case['name']}: logits differ by {rel:.3g} of max (ids "
                f"same: {same})")
         if mesh.size > 1:
-            # training across ranks is not ported: the loss refuses
-            tokens = torch.zeros(1, 8, dtype=torch.int64, device=dev)
-            try:
-                model.loss({"tokens": tokens, "labels": tokens})
-                refused = False
-            except NotImplementedError as e:
-                refused = "ROADMAP" in str(e)
-            _agree(mesh, dev, refused, "DenseLM.loss ran across ranks")
+            # the loss runs across ranks and equals one rank's
+            gen = torch.Generator(device="cpu").manual_seed(3)
+            tokens = torch.randint(0, model.cfg.vocab_size,
+                                   (model.ctx.batch_shards, 8),
+                                   generator=gen).to(dev)
+            b = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+            with torch.no_grad():
+                d = abs(float(model.loss(b)) - float(one.loss(b)))
+            _agree(mesh, dev, d <= TRAIN_TOL[dev.type]["loss"],
+                   f"{case['name']}: loss across ranks off one rank's by "
+                   f"{d:.3g}")
         out[case["name"]] = dict(ids=got, preemptions=per_group,
                                  logit_rel_err=rel, launches=launches,
                                  steps=stats.steps, tokens=stats.tokens)
@@ -445,8 +495,247 @@ def check_serve_engine(mesh: Mesh, dev, args):
     log(mesh, f"PASS serve_engine ({len(cases)} cases on {mesh.size} ranks)")
 
 
+# ---------------------------------------------------------- train_parity
+
+# loss: absolute; grad, param: of each leaf's largest |value|; zero1: ZeRO-1
+# against the replicated optimizer, of each leaf's largest |param|; step:
+# the absolute floor of both param comparisons, as a share of the summed
+# learning rates.  AdamW divides each element by its own running RMS, so
+# an element whose gradient is a sum that nearly cancels turns fp32 noise
+# into up to a whole step either way: at the reduced widths 1e-3 of the
+# steps covers it (as tests/test_torch_train.py allows); at yi-6b's full
+# width (8 M live embedding elements, fp32 on H100s) embedding elements
+# ended 0.13-0.17 of a step apart, so on the card the floor is one step.
+# The card keeps fp32 with TF32 off.
+TRAIN_TOL = {"cpu": dict(loss=1e-5, grad=1e-5, param=1e-5, zero1=1e-6,
+                         step=1e-3),
+             "cuda": dict(loss=1e-4, grad=1e-3, param=1e-3, zero1=1e-6,
+                          step=1.0)}
+TRAIN_LR = 0.1          # large enough that the second step moves the params
+LR_SUM = TRAIN_LR / 100  # cosine_lr of steps 0 and 1 (warmup 100)
+
+
+def _train_cases(device):
+    if device.type == "cuda":
+        return [dict(arch="yi-6b", layers=2, batch=4, seq=256, chunk=128)]
+    return [dict(arch="yi-6b", reduced=True, batch=4, seq=16, chunk=8),
+            dict(arch="smollm-360m", reduced=True, batch=4, seq=16,
+                 chunk=8),
+            # layernorm (its mean and inv pvary'd) and biases (the KV
+            # bias replicated over every axis), on one run and ZeRO-1
+            dict(arch="smollm-360m", reduced=True, batch=4, seq=16, chunk=8,
+                 model=dict(norm="layernorm", use_bias=True),
+                 grid=[("fused", True, False, True)])]
+
+
+def _train_grid(device):
+    """(schedule, in-op dW reduction, fused cache knobs flipped, ZeRO-1
+    run) per mesh run.  The card, where every comparison moves a
+    full-width tree through the host, runs the fused and the ring schedule
+    with the in-op reduction and the fused one deferred, ZeRO-1 once."""
+    if device.type == "cuda":
+        return [("fused", True, False, True), ("ring", True, False, False),
+                ("fused", False, False, False)]
+    return [(s, i, False, True) for s, i in itertools.product(
+        ("fused", "ring"), (True, False))] + [("fused", True, True, False)]
+
+
+def _gather_tree(mesh: Mesh, dev, tree):
+    """Every rank's tree of numpy leaves, in rank order, on every rank."""
+    def rec(t):
+        if isinstance(t, dict):
+            return {k: rec(v) for k, v in t.items()}
+        got = col.all_gather_inv(mesh, torch.from_numpy(t).to(dev), AXES)
+        return list(got.cpu().numpy())
+    per_leaf = rec(tree)
+
+    def pick(t, r):
+        return ({k: pick(v, r) for k, v in t.items()} if isinstance(t, dict)
+                else t[r])
+    return [pick(per_leaf, r) for r in range(mesh.size)]
+
+
+def _tree_err(got, want):
+    """{leaf: max |got - want| / max |want|} over a tree (blocks joined)."""
+    out = {}
+    for name, w in want.items():
+        if isinstance(w, dict):
+            out.update({f"{name}.{k}": v for k, v in
+                        _tree_err(got[name], w).items()})
+        else:
+            out[name] = float(np.abs(got[name] - w).max()
+                              / max(float(np.abs(w).max()), 1e-30))
+    return out
+
+
+def _train_batch(cfg, case, step):
+    rng = np.random.default_rng((11, step))
+    tok = rng.integers(0, cfg.vocab_size, (case["batch"], case["seq"]))
+    return {"tokens": torch.from_numpy(tok),
+            "labels": torch.from_numpy(np.roll(tok, -1, axis=1))}
+
+
+def _two_steps(model, shape, cfg, case, dev):
+    """(metrics of 2 train steps, the optimizer state) from the model's
+    params and a fresh state."""
+    step = build_train_step(model, shape)
+    opt = init_opt_state(model)
+    metrics = [step(opt, {k: v.to(dev) for k, v in
+                          _train_batch(cfg, case, i).items()})
+               for i in range(2)]
+    return metrics, opt
+
+
+def check_train_parity(mesh: Mesh, dev, args):
+    tol = TRAIN_TOL[dev.type]
+    worst = dict(loss=0.0, grad=0.0, param=0.0, zero1=0.0)
+    n_runs = 0
+    for case in _train_cases(dev):
+        t0 = time.perf_counter()
+        cfg = (get_reduced(case["arch"]) if case.get("reduced")
+               else get_arch(case["arch"])).model
+        if "layers" in case:
+            cfg = dataclasses.replace(cfg, num_layers=case["layers"])
+        cfg = dataclasses.replace(cfg, **case.get("model", {}))
+        run = RunConfig(param_dtype="float32", compute_dtype="float32",
+                        attn_impl="auto", loss_chunk=case["chunk"],
+                        lr=TRAIN_LR)
+        shape = ShapeSpec("train", case["seq"], case["batch"], "train")
+        batch = {k: v.to(dev) for k, v in _train_batch(cfg, case, 0).items()}
+        # the one-rank oracle: loss, gradients, params after 2 steps
+        one = build_model(cfg, ParallelContext(attn_impl="auto"), run,
+                          device=dev, seed=0)
+        init = params_to_numpy(one)
+        want_loss = one.loss(batch)
+        want_loss.backward()
+        want_loss, want_grads = float(want_loss.detach()), grads_to_numpy(one)
+        want_metrics, _ = _two_steps(one, shape, cfg, case, dev)
+        want_params = params_to_numpy(one)
+        del one
+        grid = case.get("grid") or _train_grid(dev)
+        for k, (sched, inop, flip, zero1) in enumerate(grid):
+            t1 = time.perf_counter()
+            # flip: the fused backward keeps A from the forward and
+            # gathers W again
+            what = (f"{case['arch']}{' ' if 'model' in case else ''}"
+                    f"{case.get('model', '')} {sched} in-op dW {inop}"
+                    + (" (A cached, W regathered)" if flip else ""))
+            ctx = mesh.ctx.replace(matmul_schedule=sched,
+                                   reduce_dgrad_in_op=inop, attn_impl="auto",
+                                   cache_act_gather=flip,
+                                   cache_weight_gather=not flip)
+            model = build_model(cfg, ctx, run, device=dev, seed=0, mesh=mesh)
+            if k == 0:
+                got = unshard_params(_gather_tree(mesh, dev,
+                                                  params_to_numpy(model)),
+                                     cfg, ctx)
+                same = all(v == 0 for v in _tree_err(got, init).values())
+                _agree(mesh, dev, same, f"{what}: the mesh's weights are "
+                                        f"not the one-rank model's")
+                del got
+            loss = model.loss(batch)
+            loss.backward()
+            grads = [p.grad for p in model.parameters()]
+            sync_grads(mesh, grads, [leaf[1] for leaf in
+                                     leaf_layouts(model)])
+            d_loss = abs(float(loss.detach()) - want_loss)
+            g_err = _tree_err(unshard_params(
+                _gather_tree(mesh, dev, grads_to_numpy(model)), cfg, ctx),
+                want_grads)
+            bad = {k: v for k, v in g_err.items() if v > tol["grad"]}
+            _agree(mesh, dev, d_loss <= tol["loss"] and not bad,
+                   f"{what}: loss off by {d_loss:.3g}, gradient leaves "
+                   f"over {tol['grad']}: {bad}")
+            worst["loss"] = max(worst["loss"], d_loss)
+            worst["grad"] = max([worst["grad"]] + list(g_err.values()))
+            n_runs += 1
+            log(mesh, f"    {what}: loss off by {d_loss:.3g}, gradients "
+                      f"within {max(g_err.values()):.3g} of max")
+            if flip:
+                continue
+            model.zero_grad(set_to_none=True)
+            metrics, _ = _two_steps(model, shape, cfg, case, dev)
+            params = unshard_params(_gather_tree(mesh, dev,
+                                                 params_to_numpy(model)),
+                                    cfg, ctx)
+            p_err = _param_err(params, want_params, tol["param"],
+                               tol["step"] * LR_SUM)
+            m_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                        for a, b in zip(metrics, want_metrics)
+                        for k in ("loss", "grad_norm"))
+            _agree(mesh, dev, not p_err and m_err <= tol["param"],
+                   f"{what}: after 2 steps, loss / grad norm off by "
+                   f"{m_err:.3g} of one rank's, params over: {p_err}")
+            worst["param"] = max([worst["param"], m_err] + [
+                v for v in _tree_err(params, want_params).values()])
+            del model
+            if not zero1:
+                log(mesh, f"    {what}: {time.perf_counter() - t1:.1f} s")
+                continue
+            # ZeRO-1 against the replicated optimizer, on the same mesh
+            zrun = dataclasses.replace(run, zero1=True)
+            zmodel = build_model(cfg, ctx, zrun, device=dev, seed=0,
+                                 mesh=mesh)
+            zmetrics, zopt = _two_steps(zmodel, shape, cfg, case, dev)
+            _check_zero_state(mesh, dev, zmodel, zopt, what)
+            zparams = unshard_params(_gather_tree(mesh, dev,
+                                                  params_to_numpy(zmodel)),
+                                     cfg, ctx)
+            z_err = _tree_err(zparams, params)
+            bad = _param_err(zparams, params, tol["zero1"],
+                             tol["step"] * LR_SUM if dev.type == "cuda"
+                             else 0.0)
+            zm = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                     for a, b in zip(zmetrics, metrics)
+                     for k in ("loss", "grad_norm"))
+            _agree(mesh, dev, not bad and zm <= tol["zero1"],
+                   f"{what}: ZeRO-1 off the replicated optimizer: metrics "
+                   f"{zm:.3g}, params over {tol['zero1']}: {bad}")
+            worst["zero1"] = max([worst["zero1"], zm] + list(z_err.values()))
+            n_runs += 1
+            del zmodel, zopt
+            log(mesh, f"    {what}: {time.perf_counter() - t1:.1f} s")
+        log(mesh, f"  train_parity {case['arch']}: loss {want_loss:.5f}; "
+                  f"{time.perf_counter() - t0:.1f} s")
+    log(mesh, f"PASS train_parity ({n_runs} runs on {mesh.size} ranks; "
+              f"worst: loss {worst['loss']:.3g}, grad {worst['grad']:.3g}, "
+              f"param {worst['param']:.3g} of max, ZeRO-1 "
+              f"{worst['zero1']:.3g})")
+
+
+def _param_err(got, want, rel, atol):
+    """{leaf: max |got - want|} over the leaves off by more than ``rel`` of
+    their largest |value| plus ``atol`` (TRAIN_TOL's step floor)."""
+    bad = {}
+    for name, w in want.items():
+        if isinstance(w, dict):
+            bad.update({f"{name}.{k}": v for k, v in _param_err(
+                got[name], w, rel, atol).items()})
+            continue
+        err = float(np.abs(got[name] - w).max())
+        if err > rel * float(np.abs(w).max()) + atol:
+            bad[name] = err
+    return bad
+
+
+def _check_zero_state(mesh, dev, model, opt, what):
+    """Each leaf's m and v are its [k] slice: the local block split zn ways
+    over the data and depth axes it is replicated on."""
+    ok = True
+    for p, m, v, (spec, _, lay, _) in zip(model.parameters(), opt["m"],
+                                          opt["v"], leaf_layouts(model)):
+        used = {a for dim in spec for a in dim}
+        zn = mesh.axis_size(tuple(a for a in ("data", "depth")
+                                  if a not in used))
+        ok &= (lay.zn == zn and m.numel() == v.numel() == lay.k
+               == -(-p.numel() // zn))
+    _agree(mesh, dev, ok, f"{what}: ZeRO-1 state slices are not 1/zn of "
+                          f"their blocks")
+
+
 CHECKS = {"collectives": check_collectives, "summa_exact": check_summa_exact,
-          "serve_engine": check_serve_engine}
+          "serve_engine": check_serve_engine,
+          "train_parity": check_train_parity}
 
 
 def main(argv=None):
@@ -475,8 +764,7 @@ def main(argv=None):
         for name in args.checks:
             CHECKS[name](mesh, dev, args)
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        shutdown_distributed(mesh)
     return 0
 
 

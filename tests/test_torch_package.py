@@ -174,8 +174,10 @@ def test_attn_impl_resolution():
 def test_unported_features_raise():
     with pytest.raises(NotImplementedError, match="fault_plan"):
         RunConfig(fault_plan="serve.step@1:drop_step")
-    with pytest.raises(TypeError):             # multi-rank knobs: not copied
-        RunConfig(zero1=True)
+    with pytest.raises(TypeError):             # pipeline knobs: not copied
+        RunConfig(pipe_stages=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RunConfig(grad_compression="bf16")
     with pytest.raises(TypeError):             # AdamW only; LAMB comes in A3
         RunConfig(optimizer="lamb")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

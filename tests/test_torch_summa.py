@@ -7,13 +7,17 @@
     plain versions sum in float64, the references in fp32).
 (b) One spawn of 4 CPU ranks ([2, 2, 1]) and one of 8 ([2, 2, 2], the only
     layout with all three Tesseract axes > 1) under torchrun with gloo: each
-    collective against a numpy model, and ``tesseract_matmul`` fused and
-    ring against the unsharded product within 1e-5
-    (``repro_torch.testing.mdchecks collectives summa_exact``); and one of 4
-    ranks with data = depth = 2, q = 1, where a request's K/V blocks may
-    belong to a KV group of the other data coordinate: the engine's ids
-    against the port's one-rank engine (``serve_engine``).  The spawns
-    start with the module's first test and are read by its last.
+    collective and each differentiable collective's backward against a
+    numpy model, and ``tesseract_matmul`` fused and ring against the
+    unsharded product within 1e-5 (``repro_torch.testing.mdchecks
+    collectives summa_exact``); and one of 4 ranks with data = depth = 2,
+    q = 1, where a request's K/V blocks may belong to a KV group of the
+    other data coordinate: the engine's ids against the port's one-rank
+    engine (``serve_engine``).  All three train across ranks against the
+    port's one-rank step (``train_parity``: reduced yi-6b and smollm-360m,
+    fp32, fused and ring, the in-op dW reduction on and off, ZeRO-1
+    against the replicated optimizer).  The spawns start with the
+    module's first test and are read by its last two.
 (c) ``convert.shard_params``: every rank's block of every leaf of the
     reference's param tree is the block its partition spec names, so the
     blocks reassemble to the tree.
@@ -52,6 +56,8 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 SPAWNS = {"q2": (4, "1,1,2,2", ("collectives", "summa_exact")),
           "q2d2": (8, "1,2,2,2", ("collectives", "summa_exact")),
           "dp2d2": (4, "2,2,1,1", ("collectives", "serve_engine"))}
+TRAIN = "train_parity"          # the last check of every spawn
+SPAWN_TIMEOUT_S = 300
 
 
 def _mm_inputs(rng, T, E, F, G):
@@ -62,15 +68,24 @@ def _mm_inputs(rng, T, E, F, G):
 @pytest.fixture(scope="module", autouse=True)
 def spawns():
     """The 4- and 8-rank runs of the mesh checks, started together with the
-    module's first test, so they run while the others do."""
+    module's first test, so they run while the others do.  Yields
+    ``result(name)``: the spawn's (return code, output), waited for once."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     procs = {name: subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          f"--nproc-per-node={n}", "-m", "repro_torch.testing.mdchecks",
-         *checks, "--device", "cpu", "--layout", layout],
+         *checks, TRAIN, "--device", "cpu", "--layout", layout],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for name, (n, layout, checks) in SPAWNS.items()}
-    yield procs
+    done = {}
+
+    def result(name):
+        if name not in done:
+            out, _ = procs[name].communicate(timeout=SPAWN_TIMEOUT_S)
+            done[name] = (procs[name].returncode, out)
+        return done[name]
+
+    yield result
     for p in procs.values():
         if p.poll() is None:
             p.kill()
@@ -198,7 +213,18 @@ def test_shard_params_blocks_reassemble(arch, kv, layout):
 
 @pytest.mark.parametrize("name", sorted(SPAWNS))
 def test_collectives_and_summa_on_cpu_ranks(spawns, name):
-    out, _ = spawns[name].communicate(timeout=120)
-    assert spawns[name].returncode == 0, out[-4000:]
+    rc, out = spawns(name)
+    assert rc == 0, out[-4000:]
     for check in SPAWNS[name][2]:
         assert f"PASS {check}" in out, out
+
+
+@pytest.mark.parametrize("name", sorted(SPAWNS))
+def test_train_parity_on_cpu_ranks(spawns, name):
+    """Training on the spawn's mesh against the port's one-rank step
+    (``mdchecks train_parity``): loss within 1e-5, each gradient leaf
+    within 1e-5 of the leaf's max, the params after 2 AdamW steps within
+    1e-5 of the leaf's max plus 1e-3 of the summed learning rates, ZeRO-1
+    within 1e-6 of the replicated optimizer."""
+    rc, out = spawns(name)
+    assert rc == 0 and f"PASS {TRAIN}" in out, out[-4000:]
