@@ -47,31 +47,38 @@ non-zero and prints no result:
 6. ring: the same request with matmul_schedule="ring" (kernel #2 in every
    projection) against "fused" (kernel #1): ids identical, logits within
    1e-4 of their max, only the schedule's kernel launched;
-7. training parity: smollm-360m at full width and depth in fp32 (TF32
+7. megatron: yi-6b at full width in fp32 (TF32 off), 4 layers, one
+   1000-token prefill and 8 greedy paged decode steps through the 1-D
+   baseline's op set at one rank (``ParallelContext(mode="megatron1d")``,
+   ``MegatronOps``: its products are torch.matmul) against ``TesseractOps``
+   on the same weights: ids identical, logits within 1e-4 of their max,
+   the flash forward and paged decode launched once per layer per
+   forward, kernel #1 not at all;
+8. training parity: smollm-360m at full width and depth in fp32 (TF32
    off), B = 2, T = 1024: the loss and every gradient leaf through the
    kernels against the plain versions;
-8. ssm parity: mamba2-1.3b at full width and depth in fp32 (TF32 off),
+9. ssm parity: mamba2-1.3b at full width and depth in fp32 (TF32 off),
    B = 2, T = 1000 (the SSD kernel at Q = 250) and 8 greedy decode steps,
    then the same teacher-forced through the plain version: ids identical,
    every cache leaf within 1e-4 of its max;
-9. serve: yi-6b at full width in bf16 through InferenceEngine (8 slots,
+10. serve: yi-6b at full width in bf16 through InferenceEngine (8 slots,
    block 16, 2048 blocks): 16 greedy requests of 128/512/1000/2000 prompt
    tokens and 32 new tokens each; the kernels' launch counters are zeroed
    just before and read just after, and must show the kernels ran (7
    tesseract_mm launches per layer of every prefill and decode step);
-10. train: smollm-360m at full width and depth, fp32 params, bf16 compute,
+11. train: smollm-360m at full width and depth, fp32 params, bf16 compute,
    seq 2048 x batch 8, 10 steps through runtime/train_loop.train with the
    launch counters zeroed just before: finite losses starting near
    ln(vocab), no skipped step, 32 launches per step of each flash kernel
    and 7 x 32 of tesseract_mm; step time, tokens/s, peak memory, model
    FLOPs share and a profile;
-11. ssm serve: mamba2-1.3b at full width and depth in bf16, one prefill of
+12. ssm serve: mamba2-1.3b at full width and depth in bf16, one prefill of
    8 prompts x 2048 tokens (Q = 256, nc = 8) and 32 greedy decode steps
    with the launch counters zeroed just before: exactly 48 SSD launches
    and 4 x 48 tesseract_mm launches per prefill and decode step, in-vocab
    ids, finite states; prefill time, decode step p50/p99, tokens/s, peak
    memory and a profiled prefill;
-12. timings at the serve and train shapes: each kernel checked once more
+13. timings at the serve and train shapes: each kernel checked once more
    against its plain version on the exact inputs it times (flash at the
    2048 bucket and at the train shape, paged with a 256-entry table over
    the 2048-block pool, the backward passes and the forward at the train
@@ -87,7 +94,7 @@ non-zero and prints no result:
    from the plain version's; and the host time of one projection (the SUMMA
    wrapper against torch.matmul, and on the wgmma route, whose launch
    encodes two TMA descriptors);
-13. the last line: {"ok": true, "device": {...}}.
+14. the last line: {"ok": true, "device": {...}}.
 
 The four-card mesh is not a phase (this script needs one card): it runs
 under torchrun, ``python -m repro_torch.testing.mdchecks`` and
@@ -682,6 +689,60 @@ def phase_summa_ring():
     del model, runs, fused, ring
     torch.cuda.empty_cache()
     return launches
+
+
+MEGATRON_LAYERS = 4
+
+
+def phase_megatron():
+    """yi-6b at full width in fp32 (TF32 off), MEGATRON_LAYERS layers: one
+    1000-token prefill and 8 greedy paged decode steps through
+    ``MegatronOps`` at one rank against ``TesseractOps`` on the same
+    weights (both built from seed 0).  Each run's launch counters are
+    zeroed just before it and read just after: both launch the flash
+    forward (#3) once per layer of the prefill and paged decode (#6) once
+    per layer of each step; Tesseract's projections launch #1 (7 per
+    layer per forward), Megatron's (torch.matmul) none.  Ids identical,
+    logits within 1e-4 of their max."""
+    import dataclasses
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.api import ParallelContext
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.registry import build_model, get_arch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(ARCH).model,
+                              num_layers=MEGATRON_LAYERS)
+    run = RunConfig(param_dtype="float32", compute_dtype="float32",
+                    attn_impl="pallas")
+    L, prompt, steps = MEGATRON_LAYERS, 1000, 8
+    runs = {}
+    for mode in ("tesseract", "megatron1d"):
+        model = build_model(cfg, ParallelContext(mode=mode,
+                                                 attn_impl="pallas"),
+                            run, device="cuda", seed=0)
+        kops.reset_launches()
+        runs[mode] = _prefill_decode(model, prompt, steps)
+        launches = dict(kops.LAUNCHES)
+        mm = DENSE_MM * L * (1 + steps) if mode == "tesseract" else 0
+        want = (L, L * steps, mm, 0)
+        got = (launches["flash_fwd"], launches["paged_attention"],
+               launches["tesseract_mm"], launches["tesseract_mm_stream"])
+        check(got == want, f"{mode} run launched (#3, #6, #1, #2) = {got}, "
+                           f"want {want}")
+        del model
+        torch.cuda.empty_cache()
+    (tess, t_ids), (meg, m_ids) = runs["tesseract"], runs["megatron1d"]
+    scale = max(float(x.abs().max()) for x in tess)
+    err = max(max_err(a, b) for a, b in zip(meg, tess))
+    log(f"megatron: {ARCH} L={L} fp32, prompt {prompt} + {steps} decode "
+        f"steps, MegatronOps vs TesseractOps at one rank: ids identical "
+        f"{m_ids == t_ids}; max |megatron - tesseract| {err:.3g} of max "
+        f"|logit| {scale:.3g}; megatron launches {launches}")
+    check(m_ids == t_ids, f"megatron ids {m_ids} != tesseract ids {t_ids}")
+    check(err <= 1e-4 * scale, f"megatron logits differ by {err:.3g}")
+    del runs, tess, meg
 
 
 def _train_batch(model, seq, batch, step=0):
@@ -1713,6 +1774,7 @@ def main():
         phase(phase_parity)
         phase(phase_bf16_parity)
         ring_launches = phase(phase_summa_ring)
+        phase(phase_megatron)
         phase(phase_train_parity)
         phase(phase_ssm_parity)
         launches, counts = phase(phase_serve)

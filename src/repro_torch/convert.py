@@ -13,6 +13,8 @@ travels as numpy arrays, so the two packages never share random bits:
 layout (float32), so tests compare them leaf by leaf.  Across ranks
 ``shard_params`` cuts the reference's global tree into one rank's blocks
 first, and ``unshard_params`` puts every rank's blocks back together.
+A global tree travels between processes as an .npz file of
+``flatten_params``, read back by ``load_params``.
 """
 from __future__ import annotations
 
@@ -151,3 +153,27 @@ def unshard_params(trees, cfg, ctx):
                                 block[name], lead=(cfg.num_layers,))
                      for name in trees[0]["blocks"]}
     return out
+
+
+def flatten_params(tree, prefix=""):
+    """The reference's param tree as {"a/b": array} for an .npz file."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten_params(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def load_params(path):
+    """The param tree of an .npz file written from ``flatten_params``."""
+    tree = {}
+    with np.load(path) as z:
+        for key in z.files:
+            parts = key.split("/")
+            node = tree
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = z[key]
+    return tree

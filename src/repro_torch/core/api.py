@@ -11,8 +11,9 @@ Tesseract (the paper) arranges the tensor-parallel group as a [q, q, d] grid
 
 The PyTorch port's own copy of ``repro.core.api``.  The port runs the
 ``tesseract`` and ``summa2d`` layouts over any ``data``, ``depth`` and
-``rows == cols`` (``require_supported`` refuses the rest: a ``seq`` axis,
-``megatron1d``, ``gspmd`` and the bf16 dW reduce-scatter).
+``rows == cols``, and ``megatron1d`` over any ``data`` and ``cols``
+(``require_supported`` refuses the rest: a ``seq`` axis, ``gspmd`` and the
+bf16 dW reduce-scatter).
 """
 from __future__ import annotations
 
@@ -125,7 +126,10 @@ class ParallelContext:
 
     @property
     def seq_shard_axes(self) -> tuple:
-        """Axes that shard the sequence of the prefill plan."""
+        """Axes that shard the sequence of the prefill plan (Megatron-SP
+        shards it over col)."""
+        if self.mode == "megatron1d":
+            return (self.axis_col,)
         return (self.axis_depth, self.axis_row)
 
     @property
@@ -144,13 +148,14 @@ def require_supported(ctx: ParallelContext) -> None:
     """Raise NotImplementedError for a layout the port does not run.
 
     It runs ``tesseract`` and ``summa2d`` at any ``data``, ``depth`` and
-    ``rows == cols``; the ``seq`` axis (ring/striped attention), the
-    ``megatron1d`` and ``gspmd`` op sets and the bf16 dW reduce-scatter are
-    ROADMAP Queue A, item A3."""
-    if ctx.mode not in ("tesseract", "summa2d"):
+    ``rows == cols``, and ``megatron1d`` (rows = depth = 1, the fused
+    schedule: ``ParallelContext`` checks both) at any ``data`` and
+    ``cols``; the ``seq`` axis (ring/striped attention), the ``gspmd`` op
+    set and the bf16 dW reduce-scatter are ROADMAP Queue A, item A3."""
+    if ctx.mode not in ("tesseract", "summa2d", "megatron1d"):
         raise NotImplementedError(
             f"mode={ctx.mode!r} is not ported yet (ROADMAP Queue A, item A3: "
-            f"MegatronOps and the other op sets)")
+            f"the gspmd op set)")
     if ctx.seq > 1:
         raise NotImplementedError(
             f"seq={ctx.seq} is not ported yet (ROADMAP Queue A, item A3: "

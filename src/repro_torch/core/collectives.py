@@ -26,7 +26,11 @@ call ``pvary`` where the reference's typing inserts it:
   reduce-scatter backward: the gathered value meets a varying one, so the
   ``pvary`` implied there sums the members' cotangents, and each member
   keeps its own block;
-- ``psum_scatter_dim``: reduce-scatter forward, all-gather backward.
+- ``psum_scatter_dim``: reduce-scatter forward, all-gather backward;
+- ``psum_v``: ``pvary`` of a ``psum``, all-reduce forward and backward
+  (the Megatron op set's reductions of partial sums whose result meets
+  varying math: the residual stream carries each rank's partial
+  cotangent, ``core/ops.py::MegatronOps``).
 
 A collective takes its Function only where autograd records it (grad
 enabled, an input that requires grad, a group of more than one member), so
@@ -180,9 +184,25 @@ def pvary(mesh: Mesh, x, axes):
     return x
 
 
+def psum_v(mesh: Mesh, x, axes):
+    """The reference's ``psum_v`` as the Megatron op set uses it: the sum of
+    ``x`` over the group, ``pvary``'d where the reference's typing pvary's
+    it (the result meets a varying param: a down-bias or the next norm's
+    scale).  The psum's transpose is the identity and the pvary's a psum,
+    so the backward all-reduces the cotangent.  Over a group of size 1 it
+    is the identity."""
+    return pvary(mesh, psum(mesh, x, axes), axes)
+
 
 def pmax(mesh: Mesh, x, axes):
     return _all_reduce(mesh, x, axes, dist.ReduceOp.MAX)
+
+
+def pmax_v(mesh: Mesh, x, axes):
+    """``pmax`` then ``pvary`` (the reference's ``pmax_v``).  The max is
+    not differentiable (the loss takes it under a stop-gradient), so this
+    is the pmax."""
+    return pvary(mesh, pmax(mesh, x, axes), axes)
 
 
 def pmin(mesh: Mesh, x, axes):

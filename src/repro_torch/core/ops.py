@@ -1,8 +1,9 @@
-"""Operation set the models are written against (PyTorch port of
+"""Operation sets the models are written against (PyTorch port of
 ``repro.core.ops``).
 
-``TesseractOps`` wraps every primitive in the collectives of the [data,
-depth, row, col] mesh (``core/mesh.py``), on per-rank local blocks:
+Each wraps every primitive in the collectives of the [data, depth, row,
+col] mesh (``core/mesh.py``), on per-rank local blocks.  ``TesseractOps``,
+the paper's 2.5-D scheme (summa2d at depth 1):
 
     activations : [B_loc, S_loc, h/q]   tokens over (data, depth, row) —
                                         the sequence over (depth, row) on
@@ -10,6 +11,15 @@ depth, row, col] mesh (``core/mesh.py``), on per-rank local blocks:
                                         features over col
     weights     : [F/q, G/q]            (row, col), replicated over
                                         (data, depth)
+
+``MegatronOps``, the paper's 1-D baseline (Megatron-LM: rows = depth = 1,
+cols = p):
+
+    activations : [B_loc, S_loc, h]     tokens over data — the sequence
+                                        over col on the seq-sharded
+                                        prefill plan (Megatron-SP) — and
+                                        features whole
+    weights     : up [F, G/p], down [G/p, F]   (col on the out / in dim)
 
 At one rank every collective is the identity and each method is its local
 math.  ``Plan`` and ``kv_group_axes`` keep the reference's names so the
@@ -67,15 +77,121 @@ def kv_group_axes(ctx: ParallelContext, plan: Plan) -> tuple:
     return ()                                 # long_decode: replicated pool
 
 
-class TesseractOps:
-    """The Tesseract op set on one rank's local blocks."""
-
-    mode_family = "tesseract"
+class _OpSet:
+    """What both op sets share: the host layout's blocks, the sequence
+    shards of the prefill plan (over ``ctx.seq_shard_axes``: (depth, row)
+    in Tesseract, col in Megatron) and the vocab-sharded head."""
 
     def __init__(self, ctx: ParallelContext, mesh: Mesh, plan: Plan):
         self.ctx = ctx            # layout and knobs (matmul_schedule)
         self.mesh = mesh          # this rank's place and process groups
         self.plan = plan
+
+    def host_block(self, t, axes_per_dim):
+        """This rank's block of a host-layout tensor, each dim cut over its
+        axes (lexicographic, first axis outermost)."""
+        for dim, axes in enumerate(axes_per_dim):
+            n = self.mesh.axis_size(axes) if axes else 1
+            if n > 1:
+                m = t.shape[dim] // n
+                t = t.narrow(dim, self.mesh.index(axes) * m, m)
+        return t
+
+    # ---------------- token/seq info ----------------
+    def seq_shard_index(self) -> int:
+        return self.mesh.index(self.ctx.seq_shard_axes)
+
+    def positions(self, seq_loc: int, device=None):
+        """Global position ids [seq_loc] of this rank's sequence block."""
+        pos = torch.arange(seq_loc, device=device)
+        if self.plan.seq_sharded:
+            pos = pos + self.seq_shard_index() * seq_loc
+        return pos
+
+    def gather_seq(self, x, axis: int):
+        """Gather a seq-sharded tensor to full length."""
+        if not self.plan.seq_sharded:
+            return x
+        return col.all_gather_cat(self.mesh, x, self.ctx.seq_shard_axes,
+                                  axis=axis)
+
+    # ---------------- heads ----------------
+    def _row_axes(self, tokens_sharded: bool) -> tuple:
+        """Axes the head's token rows are gathered over so every rank holds
+        every row of the mesh: all the token axes of the decode plan, else
+        the data axis the batch is split over (none on long_decode)."""
+        if tokens_sharded:
+            return self.ctx.token_axes
+        if self.plan.kind == "long_decode":
+            return ()
+        return (self.ctx.axis_data,)
+
+    def _sharded_logits(self, x, w_head, vocab_real, tokens_sharded):
+        """Per-shard logits [B_all, v_loc] float32 (padded vocab at -inf) of
+        every token row of the mesh, and this shard's global vocab offset.
+        The single head implementation that head_sample's distributed
+        argmax and head_logits' gathered rows both reduce.  The products
+        run in fp32 like the reference's fp32-accumulated head einsum with
+        a float32 result."""
+        mesh, ctx = self.mesh, self.ctx
+        xg = self._head_features(x[:, 0, :])
+        rows = self._row_axes(tokens_sharded)
+        if rows:
+            xg = col.all_gather_cat(mesh, xg, rows, axis=0)
+        logits = torch.matmul(xg.float(), w_head.float().t())
+        v_loc = w_head.shape[0]
+        v_off = mesh.index(ctx.model_axes) * v_loc
+        vmask = (v_off + torch.arange(v_loc, device=x.device)) < vocab_real
+        return logits.masked_fill(~vmask[None, :], float("-inf")), v_off
+
+    def head_sample(self, x, w_head, *, vocab_real: int,
+                    tokens_sharded: bool | None = None):
+        """Greedy next-token ids [B_all] int32 of every token row of the
+        mesh from x [B_loc, 1, h_loc]: the distributed argmax over the
+        vocab shards, ties to the smallest index."""
+        if tokens_sharded is None:
+            tokens_sharded = self.plan.kind == "decode"
+        logits, v_off = self._sharded_logits(x, w_head, vocab_real,
+                                             tokens_sharded)
+        return col.distributed_argmax(self.mesh, logits, v_off,
+                                      self.ctx.model_axes)
+
+    def head_logits(self, x, w_head, *, vocab_real: int,
+                    tokens_sharded: bool | None = None):
+        """Full-vocab logits [B_all, v_pad] float32 of every token row of
+        the mesh from x [B_loc, 1, h_loc], the same on every rank; padded
+        vocab entries are -inf.  ``tokens_sharded``: whether x's rows are
+        sharded over the token axes (decode plan) or replicated over the
+        sequence shards (prefill last token, long_decode)."""
+        if tokens_sharded is None:
+            tokens_sharded = self.plan.kind == "decode"
+        logits, _ = self._sharded_logits(x, w_head, vocab_real,
+                                         tokens_sharded)
+        # vocab shards are laid out lexicographically over (depth, row,
+        # col), matching all_gather_cat's concatenation order
+        return col.all_gather_cat(self.mesh, logits, self.ctx.model_axes,
+                                  axis=1)
+
+    def _chunks(self, x, labels, label_mask, loss_chunk):
+        """The CE loss's token rows [E, h_loc], this rank's labels and mask
+        weights [E], and the chunk length: ``loss_chunk`` shrunk to divide
+        E, as the reference does."""
+        E = x.shape[0] * x.shape[1]
+        lab = self.shard_tokens(labels).reshape(E).long()
+        lm = (torch.ones(E, dtype=torch.float32, device=x.device)
+              if label_mask is None
+              else self.shard_tokens(label_mask).reshape(E).to(
+                  torch.float32))
+        c = max(1, min(loss_chunk, E))
+        while E % c:
+            c -= 1
+        return x.reshape(E, x.shape[-1]), lab, lm, c
+
+
+class TesseractOps(_OpSet):
+    """The Tesseract op set on one rank's local blocks."""
+
+    mode_family = "tesseract"
 
     def vocab_pad_multiple(self) -> int:
         return self.ctx.depth * self.ctx.rows * self.ctx.cols
@@ -91,16 +207,6 @@ class TesseractOps:
         if self.plan.seq_sharded:
             return (("data",), ("depth",))
         return (("data", "depth"), ())
-
-    def host_block(self, t, axes_per_dim):
-        """This rank's block of a host-layout tensor, each dim cut over its
-        axes (lexicographic, first axis outermost)."""
-        for dim, axes in enumerate(axes_per_dim):
-            n = self.mesh.axis_size(axes) if axes else 1
-            if n > 1:
-                m = t.shape[dim] // n
-                t = t.narrow(dim, self.mesh.index(axes) * m, m)
-        return t
 
     # ---------------- core ops ----------------
     def linear(self, x, w, b=None):
@@ -118,6 +224,16 @@ class TesseractOps:
     # both directions are the same op
     linear_up = linear
     linear_down = linear
+
+    def seq_gather_in(self, x):
+        """The Megatron-SP entry gather's hook: Tesseract activations stay
+        sharded through the blocks."""
+        return x
+
+    def positions_q(self, t: int, device=None):
+        """Positions of the q rows out of ``seq_gather_in`` and
+        ``linear_up``: this rank's sequence block."""
+        return self.positions(t, device=device)
 
     def linear_to_replicated(self, x, w, b=None):
         """[.., F_loc] x [F_loc, G] -> psum(col) -> [.., G] replicated over
@@ -188,24 +304,6 @@ class TesseractOps:
             y = y + bias.float()
         return y.to(x.dtype)
 
-    # ---------------- token/seq info ----------------
-    def seq_shard_index(self) -> int:
-        return self.mesh.index(self.ctx.seq_shard_axes)
-
-    def positions(self, seq_loc: int, device=None):
-        """Global position ids [seq_loc] of this rank's sequence block."""
-        pos = torch.arange(seq_loc, device=device)
-        if self.plan.seq_sharded:
-            pos = pos + self.seq_shard_index() * seq_loc
-        return pos
-
-    def gather_seq(self, x, axis: int):
-        """Gather a seq-sharded tensor to full length (K/V in attention)."""
-        if not self.plan.seq_sharded:
-            return x
-        return col.all_gather_cat(self.mesh, x, self.ctx.seq_shard_axes,
-                                  axis=axis)
-
     def kv_full(self, k, axis: int = 1):
         """K/V (as produced by the projections) -> full-sequence K/V."""
         return self.gather_seq(k, axis)
@@ -227,33 +325,23 @@ class TesseractOps:
         ``@jax.checkpoint``), so the [tokens, vocab] logits never exist
         whole.  The sums are invariant over the model axes and still vary
         over data (the caller psums them there)."""
+        xf, lab, lm, c = self._chunks(x, labels, label_mask, loss_chunk)
         if self.mesh.size > 1:
-            return self._ce_loss_mesh(x, w_head, labels, vocab_real,
-                                      loss_chunk, label_mask)
-        E = x.shape[0] * x.shape[1]
-        xf = x.reshape(E, x.shape[-1])
-        lab = labels.reshape(E).long()
-        lm = (torch.ones(E, dtype=torch.float32, device=x.device)
-              if label_mask is None
-              else label_mask.reshape(E).to(torch.float32))
-        c = max(1, min(loss_chunk, E))
-        while E % c:
-            c -= 1
+            return self._ce_loss_mesh(xf, w_head, lab, lm, c, vocab_real)
         # fp32 products of the compute-dtype values: the reference's
         # preferred_element_type=float32 accumulation, without rounding
         w32 = w_head.float()
         vmask = torch.arange(w_head.shape[0], device=x.device) < vocab_real
         loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         count = torch.zeros((), dtype=torch.float32, device=x.device)
-        for i in range(0, E, c):
+        for i in range(0, xf.shape[0], c):
             ls, cs = checkpoint(_chunk_loss, xf[i:i + c], w32, lab[i:i + c],
                                 lm[i:i + c], vmask, use_reentrant=False)
             loss_sum = loss_sum + ls
             count = count + cs
         return loss_sum, count
 
-    def _ce_loss_mesh(self, x, w_head, labels, vocab_real, loss_chunk,
-                      label_mask):
+    def _ce_loss_mesh(self, xf, w_head, lab, lm, c, vocab_real):
         """``ce_loss`` over the vocab-sharded head (``repro/core/ops.py``
         ``ce_loss``): each chunk's tokens are gathered over (depth, row)
         and its features over col, every model rank forms the logits of its
@@ -261,21 +349,11 @@ class TesseractOps:
         exps and the owner's label logit are psum'd over the model axes,
         and each rank keeps its own token slice before one psum over
         (depth, row)."""
-        E = x.shape[0] * x.shape[1]
-        xf = x.reshape(E, x.shape[-1])
-        lab = self.shard_tokens(labels).reshape(E).long()
-        lm = (torch.ones(E, dtype=torch.float32, device=x.device)
-              if label_mask is None
-              else self.shard_tokens(label_mask).reshape(E).to(
-                  torch.float32))
-        c = max(1, min(loss_chunk, E))
-        while E % c:
-            c -= 1
         # the fp32 copy the backward's dX product reads (ROADMAP Queue C:
         # dlogits is fp32), made once per step rather than once per chunk
         w32 = w_head.detach().float()
         loss_sum = count = None
-        for i in range(0, E, c):
+        for i in range(0, xf.shape[0], c):
             ls, cs = checkpoint(self._ce_chunk_mesh, xf[i:i + c], w_head,
                                 w32, lab[i:i + c], lm[i:i + c], vocab_real,
                                 use_reentrant=False)
@@ -314,62 +392,198 @@ class TesseractOps:
         return (col.psum(mesh, (mine * m_chunk).sum(), rows),
                 col.psum(mesh, m_chunk.sum(), rows))
 
-    def _row_axes(self, tokens_sharded: bool) -> tuple:
-        """Axes the head's token rows are gathered over so every rank holds
-        every row of the mesh: all the token axes of the decode plan, else
-        the data axis the batch is split over (none on long_decode)."""
-        if tokens_sharded:
-            return self.ctx.token_axes
+    def _head_features(self, x):
+        """The head's rows [B_loc, h/q] with their features gathered over
+        col."""
+        return col.all_gather_inv(self.mesh, x, self.ctx.axis_col,
+                                  tiled=True, axis=1)
+
+
+class MegatronOps(_OpSet):
+    """The Megatron-LM 1-D op set (``repro/core/ops.py:448 MegatronOps``)
+    on one rank's local blocks: column-parallel up-projections, row-parallel
+    down-projections whose partial sums are all-reduced over the model axes
+    (reduce-scattered over col along the sequence on the seq-sharded
+    prefill plan: Megatron-SP, which gathers the sequence back before the
+    block's up-projections, ``seq_gather_in``), and the embed and head
+    vocab-sharded over col.  depth and row have size 1, so a reduction
+    over the model axes is one over col.
+
+    Its products are ``torch.matmul``, fp32-accumulated and rounded once to
+    the activations' dtype, as the reference's ``_f32_einsum`` (a plain
+    einsum outside any Pallas kernel) is: no SUMMA contraction, so no
+    kernel #1.
+
+    Gradients.  The residual stream is replicated over col, and each
+    rank's cotangent of it is that rank's partial: the reductions into the
+    stream are ``psum_v`` (all-reduce forward and backward), so the norm
+    scales and the replicated biases get partial gradients, which the
+    train step's ``sync_grads`` sums over col.  The reference types the
+    stream invariant and pvary's it where it meets a varying param (the
+    next norm's scale, a down-bias); both give the same gradients."""
+
+    mode_family = "megatron"
+
+    def vocab_pad_multiple(self) -> int:
+        return self.ctx.cols
+
+    # ---------------- host layout ----------------
+    def tokens_in_axes(self) -> tuple:
+        """Per-dim mesh axes of host-layout ids [B, S]: the batch over data
+        (decode_dp is decode in 1-D), whole on long_decode; the sequence
+        shards of the prefill plan are cut by ``embed``'s reduce-scatter."""
         if self.plan.kind == "long_decode":
-            return ()
-        return (self.ctx.axis_data,)
+            return ((), ())
+        return (("data",), ())
 
-    def _sharded_logits(self, x, w_head, vocab_real, tokens_sharded):
-        """Per-shard logits [B_all, v_loc] float32 (padded vocab at -inf) of
-        every token row of the mesh, and this shard's global vocab offset.
-        The single head implementation that head_sample's distributed
-        argmax and head_logits' gathered rows both reduce."""
+    # ---------------- core ops ----------------
+    def seq_gather_in(self, x):
+        """Megatron-SP's entry gather, once before a block's
+        up-projections: the sequence shards gathered over col."""
+        return self.gather_seq(x, 1)
+
+    def positions_q(self, t: int, device=None):
+        """Positions of the q rows out of ``seq_gather_in`` and
+        ``linear_up``: Megatron-SP projects the gathered sequence."""
+        return torch.arange(t, device=device)
+
+    def linear_up(self, x, w, b=None):
+        """Column-parallel: [.., F] x [F, G/p] -> [.., G/p]."""
+        y = torch.matmul(x, w)
+        if b is not None:
+            y = y + b
+        return y
+
+    def linear_down(self, h, w, b=None):
+        """Row-parallel: [.., G/p] x [G/p, F] -> the partial sums
+        all-reduced over the model axes (``psum_v``), or on the seq-sharded
+        plan reduce-scattered over col along the sequence -> [.., F]."""
+        y = torch.matmul(h, w)
+        if self.plan.seq_sharded:
+            y = col.psum_scatter_dim(self.mesh, y, self.ctx.axis_col, 1)
+        else:
+            y = col.psum_v(self.mesh, y, self.ctx.model_axes)
+        if b is not None:
+            y = y + b
+        return y
+
+    def linear_to_replicated(self, x, w, b=None):
+        """[.., F] x [F, G] with the weight replicated: a local product
+        (replicated GQA KV heads when num_kv_heads % p != 0)."""
+        y = torch.matmul(x, w)
+        if b is not None:
+            y = y + b
+        return y
+
+    def embed(self, ids, table):
+        """ids: this rank's host-layout block [B', S'] (``host_block``);
+        table: this rank's vocab shard [v_pad/p, h] (over col).  Returns the
+        canonical activation [B_loc, S_loc, h]: the vocab shards' partial
+        rows all-reduced over the model axes (``psum_v``), or on the
+        seq-sharded plan reduce-scattered over col along the sequence.  Ids
+        outside the vocab give zero rows."""
+        v_loc = table.shape[0]
+        local = ids - self.mesh.coords["col"] * v_loc
+        valid = (local >= 0) & (local < v_loc)
+        emb = table[local.clamp(0, v_loc - 1)]
+        emb = torch.where(valid[..., None], emb, torch.zeros_like(emb))
+        if self.plan.seq_sharded:
+            return col.psum_scatter_dim(self.mesh, emb, self.ctx.axis_col, 1)
+        return col.psum_v(self.mesh, emb, self.ctx.model_axes)
+
+    def shard_tokens(self, t):
+        """Slice host-layout ids [B', S'] to this rank's token block: its
+        sequence shard on the seq-sharded plan."""
+        if not self.plan.seq_sharded:
+            return t
+        n = t.shape[1] // self.ctx.cols
+        return t.narrow(1, self.mesh.coords["col"] * n, n)
+
+    def rmsnorm(self, x, scale, eps=1e-5):
+        """RMS norm scaled by ``1 + scale`` in fp32, over the whole
+        features every rank holds (no collective)."""
+        xf = x.float()
+        ssq = (xf * xf).sum(-1, keepdim=True)
+        inv = torch.rsqrt(ssq / x.shape[-1] + eps)
+        return ((xf * inv) * (1.0 + scale.float())).to(x.dtype)
+
+    def layernorm(self, x, scale, bias, eps=1e-5):
+        xf = x.float()
+        h = x.shape[-1]
+        mean = xf.sum(-1, keepdim=True) / h
+        var = (xf * xf).sum(-1, keepdim=True) / h - mean * mean
+        y = (xf - mean) * torch.rsqrt(var + eps) * scale.float()
+        if bias is not None:
+            y = y + bias.float()
+        return y.to(x.dtype)
+
+    def kv_full(self, k, axis: int = 1):
+        """K/V are full-length already: Megatron-SP projects the gathered
+        sequence."""
+        return k
+
+    # ---------------- losses / heads ----------------
+    def ce_loss(self, x, w_head, labels, *, vocab_real: int,
+                loss_chunk: int = 512, label_mask=None):
+        """Chunked cross-entropy -> (loss_sum, count), fp32 scalars, over
+        the head's vocab shard [v_pad/p, h] (the reference's Megatron
+        ``ce_loss``): every rank forms the fp32 logits of its vocab shard
+        for each chunk's tokens (on a seq-sharded plan the chunk is
+        gathered over col first), ``m`` is the pmax of a stop-gradient
+        max, and the sum of exps and the owner's label logit are psum'd
+        over the model axes.  Each chunk is recomputed in the backward.
+        The sums are invariant over the model axes and still vary over
+        data (the caller psums them there)."""
+        xf, lab, lm, c = self._chunks(x, labels, label_mask, loss_chunk)
+        # the fp32 copy the backward's dX product reads, made once per step
+        w32 = w_head.detach().float()
+        loss_sum = count = None
+        for i in range(0, xf.shape[0], c):
+            ls, cs = checkpoint(self._ce_chunk, xf[i:i + c], w_head, w32,
+                                lab[i:i + c], lm[i:i + c], vocab_real,
+                                use_reentrant=False)
+            loss_sum = ls if loss_sum is None else loss_sum + ls
+            count = cs if count is None else count + cs
+        return loss_sum, count
+
+    def _ce_chunk(self, x_chunk, w_head, w32, l_chunk, m_chunk, vocab_real):
         mesh, ctx = self.mesh, self.ctx
-        xg = col.all_gather_inv(mesh, x[:, 0, :], ctx.axis_col, tiled=True,
-                                axis=1)
-        rows = self._row_axes(tokens_sharded)
-        if rows:
-            xg = col.all_gather_cat(mesh, xg, rows, axis=0)
-        logits = torch.matmul(xg.float(), w_head.float().t())
+        tp = ctx.model_axes
+        sp = self.plan.seq_sharded
+        if sp:
+            # the col ranks hold different tokens: gather the chunk before
+            # the vocab-sharded product (the mask stays local)
+            x_chunk = col.all_gather_cat(mesh, x_chunk, ctx.axis_col, axis=0)
+            l_chunk = col.all_gather_cat(mesh, l_chunk, ctx.axis_col, axis=0)
         v_loc = w_head.shape[0]
-        v_off = mesh.index(ctx.model_axes) * v_loc
-        vmask = (v_off + torch.arange(v_loc, device=x.device)) < vocab_real
-        return logits.masked_fill(~vmask[None, :], float("-inf")), v_off
+        v_off = mesh.index(tp) * v_loc
+        logits = _HeadLogits.apply(x_chunk, w_head, w32)  # [C, v_loc] fp32
+        vmask = (v_off + torch.arange(v_loc, device=x_chunk.device)
+                 ) < vocab_real
+        logits = logits.masked_fill(~vmask[None, :], float("-inf"))
+        m = col.pmax_v(mesh, logits.detach().amax(-1), tp)
+        # lse and ll meet no varying value (the loss is invariant over the
+        # model axes), so the reference's psum_v leaves them unpvary'd: a
+        # plain psum, whose backward is the identity
+        se = col.psum(mesh, torch.exp(logits - m[:, None]).sum(-1), tp)
+        lse = torch.log(se) + m
+        idx = l_chunk - v_off
+        valid = (idx >= 0) & (idx < v_loc)
+        ll = logits.gather(1, idx.clamp(0, v_loc - 1)[:, None])[:, 0]
+        ll = col.psum(mesh, torch.where(valid, ll, torch.zeros_like(ll)), tp)
+        loss = lse - ll
+        if not sp:
+            return (loss * m_chunk).sum(), m_chunk.sum()
+        # this rank's own tokens of the gathered chunk (they vary over col)
+        n = m_chunk.shape[0]
+        mine = col.pvary(mesh, loss, ctx.axis_col).narrow(
+            0, mesh.index(ctx.axis_col) * n, n)
+        return (col.psum(mesh, (mine * m_chunk).sum(), ctx.axis_col),
+                col.psum(mesh, m_chunk.sum(), ctx.axis_col))
 
-    def head_sample(self, x, w_head, *, vocab_real: int,
-                    tokens_sharded: bool | None = None):
-        """Greedy next-token ids [B_all] int32 of every token row of the
-        mesh from x [B_loc, 1, h/q]: the distributed argmax over the vocab
-        shards, ties to the smallest index."""
-        if tokens_sharded is None:
-            tokens_sharded = self.plan.kind == "decode"
-        logits, v_off = self._sharded_logits(x, w_head, vocab_real,
-                                             tokens_sharded)
-        return col.distributed_argmax(self.mesh, logits, v_off,
-                                      self.ctx.model_axes)
-
-    def head_logits(self, x, w_head, *, vocab_real: int,
-                    tokens_sharded: bool | None = None):
-        """Full-vocab logits [B_all, v_pad] float32 of every token row of
-        the mesh from x [B_loc, 1, h/q], the same on every rank; padded
-        vocab entries are -inf.  The products run in fp32 like the
-        reference's fp32-accumulated head einsum with a float32 result.
-        ``tokens_sharded``: whether x's rows are sharded over the token axes
-        (decode plan) or replicated over (depth, row) (prefill last token,
-        long_decode)."""
-        if tokens_sharded is None:
-            tokens_sharded = self.plan.kind == "decode"
-        logits, _ = self._sharded_logits(x, w_head, vocab_real,
-                                         tokens_sharded)
-        # vocab shards are laid out lexicographically over (depth, row,
-        # col), matching all_gather_cat's concatenation order
-        return col.all_gather_cat(self.mesh, logits, self.ctx.model_axes,
-                                  axis=1)
+    def _head_features(self, x):
+        """The head's rows [B_loc, h]: features whole already."""
+        return x
 
 
 class _HeadLogits(torch.autograd.Function):
@@ -413,4 +627,8 @@ def ops_last_token(ops: TesseractOps, x):
 
 
 def make_ops(ctx: ParallelContext, mesh: Mesh, plan: Plan):
-    return TesseractOps(ctx, mesh, plan)
+    if ctx.mode in ("tesseract", "summa2d"):
+        return TesseractOps(ctx, mesh, plan)
+    if ctx.mode == "megatron1d":
+        return MegatronOps(ctx, mesh, plan)
+    raise ValueError(f"no op set for mode {ctx.mode!r}")

@@ -1,6 +1,7 @@
 """Serving launcher of the PyTorch port: continuous-batching engine over the
-paged KV cache, on one GPU, on a Tesseract mesh of GPUs under ``torchrun``,
-or on the CPU with ``--device cpu``.
+paged KV cache, on one GPU, on a Tesseract mesh or the 1-D Megatron
+baseline (``--mode megatron1d``) of GPUs under ``torchrun``, or on the CPU
+with ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
         --requests 8 --n-slots 8 --prompt-lens 128,512 --new-tokens 16 \
@@ -11,6 +12,9 @@ or on the CPU with ``--device cpu``.
         --dtype bfloat16 --requests 16 --n-slots 8 \
         --prompt-lens 128,512,1000,2000 --new-tokens 32 --block-size 16 \
         --num-blocks 2048 --max-seq-len 4096
+
+(and ``--mode megatron1d --cols 4`` in place of ``--rows 2 --cols 2`` for
+the 1-D baseline on the same four cards)
 
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --arch yi-6b --reduced --rows 2 --cols 2 --device cpu \
@@ -50,6 +54,10 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--mode", default="tesseract",
+                    choices=("tesseract", "summa2d", "megatron1d"),
+                    help="op set: megatron1d is the 1-D baseline (rows = "
+                         "depth = 1, cols = the tensor-parallel ranks)")
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--depth", type=int, default=1)
     ap.add_argument("--rows", type=int, default=1)
@@ -96,8 +104,8 @@ def main(argv=None):
     arch = get_reduced(args.arch) if args.reduced else get_arch(args.arch)
     run = RunConfig(param_dtype=args.dtype, compute_dtype=args.dtype,
                     attn_impl=args.attn_impl)
-    ctx = ParallelContext(data=args.data, depth=args.depth, rows=args.rows,
-                          cols=args.cols,
+    ctx = ParallelContext(mode=args.mode, data=args.data, depth=args.depth,
+                          rows=args.rows, cols=args.cols,
                           matmul_schedule=args.matmul_schedule,
                           attn_impl=run.attn_impl)
     mesh = Mesh(ctx)
@@ -154,8 +162,8 @@ def main(argv=None):
               f"shed={s.shed} failed={s.failed} "
               f"nan_quarantines={s.nan_quarantines} "
               f"batch_shrinks={s.batch_shrinks}")
-        print(f"mesh: data={ctx.data} depth={ctx.depth} rows={ctx.rows} "
-              f"cols={ctx.cols} matmul_schedule={ctx.matmul_schedule} "
+        print(f"mesh: {ctx.mode} data={ctx.data} depth={ctx.depth} "
+              f"rows={ctx.rows} cols={ctx.cols} matmul_schedule={ctx.matmul_schedule} "
               f"dtype={args.dtype}; launches per rank {launches}"
               + (f"; peak device memory per rank GiB "
                  f"{[round(p, 2) for p in peaks]}" if peaks else ""),
@@ -170,8 +178,8 @@ def main(argv=None):
 def _profile_decode(engine, rng, steps, rank0):
     """Decode steps of ``n_slots`` resident 1000-token requests, the last
     ``steps`` of them under torch.profiler on rank 0 (every rank runs them):
-    device time by kernel, the NCCL kernels' share, the idle share and the
-    host's time by op."""
+    device time by kernel, the NCCL kernels' share, the GEMMs' time, the
+    idle share and the host's time by op."""
     import contextlib
     import time
 
@@ -180,6 +188,7 @@ def _profile_decode(engine, rng, steps, rank0):
     from torch.profiler import ProfilerActivity, profile
 
     from ..serve import SamplingParams
+    from .train import is_gemm
     vocab = engine.model.cfg.vocab_size
     for _ in range(engine.cfg.n_slots):
         engine.add_request(rng.randint(0, vocab, 1000).tolist(),
@@ -219,6 +228,7 @@ def _profile_decode(engine, rng, steps, rank0):
             "nccl_ms_per_step": nccl,
             "nccl_share_of_busy": nccl / busy if busy else None,
             "nccl_share_of_wall": nccl / wall_ms,
+            "gemm_ms_per_step": sum(ms for k, ms in kernels if is_gemm(k)),
             "top_kernels_ms_per_step": [[k[:80], ms]
                                         for k, ms in kernels[:12]],
             "top_host_ops_self_ms_calls_per_step": [[k[:60], ms, n]

@@ -1,5 +1,6 @@
-"""Training launcher of the PyTorch port: one card, a Tesseract mesh of
-cards under ``torchrun``, or the CPU with ``--device cpu``.
+"""Training launcher of the PyTorch port: one card, a Tesseract mesh or the
+1-D Megatron baseline (``--mode megatron1d``) across cards under
+``torchrun``, or the CPU with ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
         --steps 10 --seq 2048 --batch 8 --compute-dtype bfloat16
@@ -9,19 +10,26 @@ cards under ``torchrun``, or the CPU with ``--device cpu``.
         --steps 10 --seq 2048 --batch 8 --compute-dtype bfloat16 \
         [--matmul-schedule ring] [--profile-step]
 
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch yi-6b --mode megatron1d \
+        --cols 4 --steps 10 --seq 2048 --batch 8 --compute-dtype bfloat16
+
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \
         --reduced --device cpu --steps 4 --seq 32 --batch 4
 
 Weights are random, from a fixed seed, the same global weights on every
-layout (each rank draws them and keeps its blocks); data is the
+layout (each rank draws them and keeps its blocks), or the JAX package's
+global tree from ``--params`` (an .npz of ``convert.flatten_params``);
+data is the
 step-keyed synthetic stream, the same batch on every rank, of which each
 keeps its block.  Under ``torchrun`` (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``) every rank runs the same loop on the [data, depth, rows,
 cols] mesh, NCCL on the cards and gloo on the CPU; rank 0 prints the
 losses, grad norms, step time p50, tokens/s, the model-FLOPs share of the
-cards' bf16 peak and every rank's peak memory, and with
-``--profile-step`` one more step's device time under torch.profiler (its
-NCCL kernels apart).  The reference's pipeline, sequence-shard,
+cards' bf16 peak and every rank's peak memory (``--out`` writes the
+losses and grad norms as JSON), and with ``--profile-step`` one more
+step's device time under torch.profiler (its NCCL kernels and its GEMMs
+apart).  The reference's pipeline, sequence-shard,
 checkpoint and fault-injection flags raise (ROADMAP Queue A, item A3).
 """
 from __future__ import annotations
@@ -57,6 +65,10 @@ def main(argv=None):
     ap.add_argument("--accum", type=int, default=1,
                     help="gradient-accumulation microsteps per optimizer "
                          "step")
+    ap.add_argument("--mode", default="tesseract",
+                    choices=("tesseract", "summa2d", "megatron1d"),
+                    help="op set: megatron1d is the 1-D baseline (rows = "
+                         "depth = 1, cols = the tensor-parallel ranks)")
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--depth", type=int, default=1)
     ap.add_argument("--rows", type=int, default=1)
@@ -71,6 +83,11 @@ def main(argv=None):
     ap.add_argument("--zero-stage", type=int, default=0, choices=(0, 1))
     ap.add_argument("--profile-step", action="store_true",
                     help="after the run, profile one more step on rank 0")
+    ap.add_argument("--params", default="",
+                    help="start from this .npz of the JAX package's global "
+                         "param tree (convert.flatten_params)")
+    ap.add_argument("--out", default="",
+                    help="write the losses and grad norms here (JSON)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when asked for")
     # the reference's flags the port does not run yet
@@ -95,6 +112,7 @@ def main(argv=None):
     import torch
 
     from ..configs.base import RunConfig, ShapeSpec
+    from ..convert import load_params, params_from_jax, shard_params
     from ..core import collectives as col
     from ..core.api import ParallelContext
     from ..core.mesh import AXES, Mesh
@@ -108,13 +126,18 @@ def main(argv=None):
                     lr=args.lr, loss_scale=args.loss_scale,
                     attn_impl=args.attn_impl, accum_steps=args.accum,
                     zero1=args.zero1, zero_stage=args.zero_stage)
-    ctx = ParallelContext(data=args.data, depth=args.depth, rows=args.rows,
-                          cols=args.cols,
+    ctx = ParallelContext(mode=args.mode, data=args.data, depth=args.depth,
+                          rows=args.rows, cols=args.cols,
                           matmul_schedule=args.matmul_schedule,
                           attn_impl=run.attn_impl)
     mesh = Mesh(ctx)
     rank0 = mesh.rank == 0
     model = build_model(arch.model, ctx, run, device=dev, seed=0, mesh=mesh)
+    if args.params:
+        tree = load_params(args.params)
+        with torch.no_grad():
+            params_from_jax(shard_params(tree, arch.model, ctx, mesh.coords),
+                            model)
     shape = ShapeSpec("train", seq_len=args.seq, global_batch=args.batch,
                       kind="train")
     cuda = dev.type == "cuda"
@@ -138,8 +161,9 @@ def main(argv=None):
               f"{[round(t * 1e3, 1) for t in res.step_times]}")
         p50 = float(np.median(res.step_times))
         flops = train_flops(model, shape)
-        print(f"mesh: data={ctx.data} depth={ctx.depth} rows={ctx.rows} "
-              f"cols={ctx.cols} matmul_schedule={ctx.matmul_schedule} "
+        print(f"mesh: {ctx.mode} data={ctx.data} depth={ctx.depth} "
+              f"rows={ctx.rows} cols={ctx.cols} "
+              f"matmul_schedule={ctx.matmul_schedule} "
               f"zero1={run.zero_enabled} compute={run.compute_dtype}; "
               f"step p50 {p50 * 1e3:.1f} ms (first "
               f"{res.step_times[0] * 1e3:.1f} ms), tokens/s "
@@ -152,6 +176,10 @@ def main(argv=None):
               + (f"; peak device memory per rank GiB "
                  f"{[round(p, 2) for p in peaks]}" if peaks else ""),
               flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"losses": res.losses,
+                           "grad_norms": res.grad_norms}, f)
     if args.profile_step:
         profile = _profile_step(model, shape, rank0)
         if rank0:
@@ -173,10 +201,18 @@ def train_flops(model, shape) -> float:
             * cfg.num_layers)
 
 
+def is_gemm(kernel: str) -> bool:
+    """Whether a device kernel's name is a matrix product's: kernel #1/#2
+    (``tesseract_mm*``) or a cuBLAS / CUTLASS GEMM."""
+    k = kernel.lower()
+    return any(s in k for s in ("tesseract_mm", "gemm", "nvjet", "cutlass",
+                                "xmma"))
+
+
 def _profile_step(model, shape, rank0):
     """One train step (after a warm-up step) under torch.profiler on rank 0
-    (every rank runs both): device time by kernel, the NCCL kernels' sum
-    and the idle share."""
+    (every rank runs both): device time by kernel, the NCCL kernels' sum,
+    the GEMMs' sum (``is_gemm``) and the idle share."""
     import contextlib
     import time
 
@@ -213,10 +249,12 @@ def _profile_step(model, shape, rank0):
     busy = sum(ms for _, ms, _ in kernels)
     nccl = sum(ms for k, ms, _ in kernels if "nccl" in k.lower())
     return {"profile": f"train step on rank 0, {model.cfg.name} seq "
-                       f"{shape.seq_len} x batch {shape.global_batch}",
+                       f"{shape.seq_len} x batch {shape.global_batch}, "
+                       f"{model.ctx.mode}",
             "wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": (1.0 - busy / wall_ms) if busy else None,
             "nccl_ms": nccl,
+            "gemm_ms": sum(ms for k, ms, _ in kernels if is_gemm(k)),
             "top_kernels_ms_calls": [[k[:80], ms, n]
                                      for k, ms, n in kernels[:14]]}
 

@@ -113,11 +113,11 @@ class MambaLM(nn.Module):
                  *, device: torch.device, generator: torch.Generator,
                  mesh: Mesh | None = None):
         super().__init__()
-        if ctx.size > 1:
+        if ctx.size > 1 or ctx.mode == "megatron1d":
             raise NotImplementedError(
-                "MambaLM runs at one rank (ROADMAP Queue A, item A1: the ssm "
-                "family across ranks, with the seq-sharded prefill "
-                "branches)")
+                "MambaLM runs at one rank on the Tesseract op set (ROADMAP "
+                "Queue A, item A1: the ssm family across ranks, with the "
+                "seq-sharded prefill branches)")
         self.mesh = mesh if mesh is not None else Mesh(ctx)
         self.cfg, self.ctx, self.run = cfg, ctx, run
         self.device = device

@@ -3,16 +3,19 @@
 
 Covers GQA (KV heads sharded over col, or replicated when
 ``num_kv_heads % q != 0``), GLU / squared-ReLU MLPs, rmsnorm/layernorm,
-RoPE and head padding when ``num_heads % q != 0``.  The parameters are one
-rank's local blocks of the reference's global tree, cut by the reference's
-partition specs (``dense_param_specs``); weights keep the reference's
+RoPE and head padding when ``num_heads % q != 0``, on either op set
+(``core/ops.py``: Tesseract, or Megatron's 1-D baseline with its
+sequence-parallel prefill).  The parameters are one rank's local blocks of
+the reference's global tree, cut by the reference's partition specs of
+the op set (``dense_param_specs``); weights keep the reference's
 [in, out] layout (``x @ w``), so params carried over from the JAX package
 load by slicing alone (convert.py).  The layer stack is a Python loop over
 ``blocks`` in place of ``lax.scan``.
 
 Serving entry points, without autograd, each taking the host-layout inputs
 every rank of the mesh passes alike: ``prefill`` (bucketed, right-padded
-prompts with true ``lengths``; the sequence sharded over (depth, row)) and
+prompts with true ``lengths``; the sequence sharded over the op set's
+sequence axes, ``ctx.seq_shard_axes``) and
 ``decode_paged`` (one token per slot against the rank's KV group's
 partition of the paged pool, updated in place).  Training entry point,
 on one rank or across the mesh: ``loss`` (the mean next-token
@@ -42,44 +45,56 @@ def _param(shape, dtype, device):
 
 
 def dense_param_specs(cfg: ModelConfig, ctx: ParallelContext):
-    """The reference's ``DenseLM.specs`` (``repro/core/ops.py:86-125`` and
-    ``repro/models/transformer.py:103-137``) as a table: (top-level params,
-    per-layer params), each {name: (logical shape, padded global shape,
-    per-dim mesh axes)}, in the modules' registration order.  A dim's axes
-    split it lexicographically, first axis outermost; padded rows (vocab,
-    q heads) are zeros, as the reference's ``winit_padded`` leaves them."""
+    """The reference's ``DenseLM.specs`` (``repro/models/transformer.py:
+    103-137``) under the op set of ``ctx`` (``TesseractOps``,
+    ``repro/core/ops.py:86-125``, or ``MegatronOps``, ``:461-494``) as a
+    table: (top-level params, per-layer params), each {name: (logical
+    shape, padded global shape, per-dim mesh axes)}, in the modules'
+    registration order.  A dim's axes split it lexicographically, first
+    axis outermost; padded rows (vocab, q heads) are zeros, as the
+    reference's ``winit_padded`` leaves them."""
     h, ff, kv = cfg.d_model, cfg.d_ff, cfg.num_kv_heads
     H, D = cfg.num_heads, cfg.resolved_head_dim
     Hp = round_up(H, ctx.cols)
-    v_pad = round_up(cfg.vocab_size, ctx.tp)
+    v_pad = round_up(cfg.vocab_size,
+                     make_ops(ctx, None, Plan()).vocab_pad_multiple())
     kv_shard = kv % ctx.cols == 0
-    w2d = (("row",), ("col",))                    # spec_w2d
-    vec = (("col",),)                             # spec_vec / spec_norm
-    kv_w = w2d if kv_shard else (("col",), ())    # spec_w_to_replicated
+    if ctx.mode == "megatron1d":
+        up = ((), ("col",))                       # spec_w2d: out over col
+        down = (("col",), ())                     # spec_w_down: in over col
+        vec = (("col",),)                         # spec_bias_up
+        norm = ((),)                              # spec_norm, spec_bias_down
+        kv_rep = ((), ())                         # spec_w_to_replicated
+        embed = head = (("col",), ())             # spec_embed, spec_head
+    else:
+        up = down = (("row",), ("col",))          # spec_w2d
+        vec = norm = (("col",),)                  # spec_vec / spec_norm
+        kv_rep = (("col",), ())                   # spec_w_to_replicated
+        embed, head = up, (("depth", "row", "col"), ())
+    kv_w = up if kv_shard else kv_rep
     kv_b = vec if kv_shard else ((),)             # spec_vec_replicated
 
     def same(shape, spec):
         return (shape, shape, spec)
 
-    top = {"embed": ((cfg.vocab_size, h), (v_pad, h), w2d),     # spec_embed
-           "head": ((cfg.vocab_size, h), (v_pad, h),            # spec_head
-                    (("depth", "row", "col"), ())),
-           "ln_f": same((h,), vec)}
+    top = {"embed": ((cfg.vocab_size, h), (v_pad, h), embed),
+           "head": ((cfg.vocab_size, h), (v_pad, h), head),
+           "ln_f": same((h,), norm)}
     if cfg.norm == "layernorm":
-        top["ln_fb"] = same((h,), vec)
-    block = {"ln1": same((h,), vec), "ln2": same((h,), vec),
-             "wq": ((h, H * D), (h, Hp * D), w2d),
+        top["ln_fb"] = same((h,), norm)
+    block = {"ln1": same((h,), norm), "ln2": same((h,), norm),
+             "wq": ((h, H * D), (h, Hp * D), up),
              "wk": same((h, kv * D), kv_w), "wv": same((h, kv * D), kv_w),
-             "wo": ((H * D, h), (Hp * D, h), w2d),
-             "w_down": same((ff, h), w2d), "w_up": same((h, ff), w2d)}
+             "wo": ((H * D, h), (Hp * D, h), down),
+             "w_down": same((ff, h), down), "w_up": same((h, ff), up)}
     if cfg.mlp_glu:
-        block["w_gate"] = same((h, ff), w2d)
+        block["w_gate"] = same((h, ff), up)
     if cfg.use_bias:
         block.update(bq=((H * D,), (Hp * D,), vec), bv=same((kv * D,), kv_b),
-                     bo=same((h,), vec), b_up=same((ff,), vec),
-                     b_down=same((h,), vec))
+                     bo=same((h,), norm), b_up=same((ff,), vec),
+                     b_down=same((h,), norm))
     if cfg.norm == "layernorm":
-        block.update(ln1b=same((h,), vec), ln2b=same((h,), vec))
+        block.update(ln1b=same((h,), norm), ln2b=same((h,), norm))
     return top, block
 
 
@@ -115,10 +130,10 @@ class DenseLM(nn.Module):
         self.Hq_loc = self.Hp // q
         self.Hkv_loc = (cfg.num_kv_heads // q if self.kv_shard
                         else cfg.num_kv_heads)
-        self.v_pad = round_up(cfg.vocab_size, ctx.tp)
         self.pdt = getattr(torch, run.param_dtype)
         self.cdt = getattr(torch, run.compute_dtype)
         self.top_specs, self.block_specs = dense_param_specs(cfg, ctx)
+        self.v_pad = self.top_specs["head"][1][0]
         for name, (_, shape, spec) in self.top_specs.items():
             setattr(self, name, _param(local_shape(shape, spec, self.mesh),
                                        self.pdt, device))
@@ -216,6 +231,7 @@ class DenseLM(nn.Module):
 
     def _mlp(self, blk, x, ops):
         cfg = self.cfg
+        x = ops.seq_gather_in(x)
         act = cm.mlp_act(cfg.mlp_act)
         b_up = getattr(blk, "b_up", None)
         if cfg.mlp_glu:
@@ -235,12 +251,16 @@ class DenseLM(nn.Module):
                                vocab_real=self.cfg.vocab_size, **kw)
 
     # ------------------------------------------------- prefill and train
-    def _block(self, blk, x, ops, qpos):
+    def _block(self, blk, x, ops):
         """Attention + MLP sublayers (residuals included); also returns this
         layer's full-sequence K/V for the cache."""
         h = self._norm(ops, x, blk.ln1, getattr(blk, "ln1b", None))
+        # Megatron-SP projects the sequence gathered over col
+        h = ops.seq_gather_in(h)
+        qpos = ops.positions_q(h.shape[1], device=h.device)
         q, k, v = self._qkv(blk, h, ops, qpos)
-        # seq-sharded plans gather K/V to full length (positions 0..S-1)
+        # seq-sharded Tesseract plans gather K/V to full length (positions
+        # 0..S-1); Megatron's are full-length already
         kf, vf = ops.kv_full(k, axis=1), ops.kv_full(v, axis=1)
         ka, va = kf, vf
         if not self.kv_shard:
@@ -249,9 +269,11 @@ class DenseLM(nn.Module):
         # the Tesseract prefill plan is seq-sharded, so, as in the
         # reference, no static q offset: the flash kernel walks every KV
         # tile under the causal mask of the q rows' positions.  The train
-        # plan is not, so q_start = 0 turns the kernels' causal tile
+        # plan and every Megatron plan (whose q rows are the whole
+        # sequence) take q_start = 0, which turns the kernels' causal tile
         # skipping on.
-        q_start = None if ops.plan.seq_sharded else 0
+        q_start = (0 if not ops.plan.seq_sharded
+                   or ops.mode_family == "megatron" else None)
         out = cm.attention(q, ka, va, q_pos=qpos, causal=True,
                            local_window=self.cfg.local_window,
                            impl=self.ctx.attn_impl, q_start=q_start)
@@ -263,18 +285,17 @@ class DenseLM(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens, lengths):
         """Process right-padded prompts tokens [B, S] with true ``lengths``
-        [B] (host layout, the same on every rank; B over data, S over
-        (depth, row)).  Returns (full-vocab logits [B, v_pad] float32 at
+        [B] (host layout, the same on every rank; B over data, S over the
+        sequence axes).  Returns (full-vocab logits [B, v_pad] float32 at
         each request's last position, the same on every rank; cache {"k",
         "v": [L, B, S, Hkv_loc, D]}, every request's full-sequence K/V of
         this rank's KV heads)."""
         ops = make_ops(self.ctx, self.mesh, Plan.for_shape("prefill"))
         ids = ops.host_block(tokens, ops.tokens_in_axes())
         x = ops.embed(ids, self.embed).to(self.cdt)
-        qpos = ops.positions(x.shape[1], device=x.device)
         ks, vs = [], []
         for blk in self.blocks:
-            x, (k, v) = self._block(blk, x, ops, qpos)
+            x, (k, v) = self._block(blk, x, ops)
             ks.append(k)
             vs.append(v)
         x = self._final(ops, x)
@@ -301,10 +322,9 @@ class DenseLM(nn.Module):
         cut = ops.tokens_in_axes()
         x = ops.embed(ops.host_block(batch["tokens"], cut),
                       self.embed).to(self.cdt)
-        qpos = ops.positions(x.shape[1], device=x.device)
 
         def block(blk, x):
-            return self._block(blk, x, ops, qpos)[0]
+            return self._block(blk, x, ops)[0]
 
         for blk in self.blocks:
             if self.run.remat == "full":
@@ -325,7 +345,9 @@ class DenseLM(nn.Module):
         """Names of the block params that flow only through
         ``tesseract_matmul``, whose dW the op reduces over (data, depth)
         when ``reduce_dgrad_in_op`` (the reference's
-        ``tess_weight_names``)."""
+        ``tess_weight_names``): none in Megatron."""
+        if self.ctx.mode == "megatron1d":
+            return set()
         names = {"wq", "wo", "w_up", "w_down"}
         if self.cfg.mlp_glu:
             names.add("w_gate")

@@ -152,7 +152,8 @@ class InferenceEngine:
         self._b_pre = cfg.prefill_batch or max(1, ctx.data)
         if self._b_pre % ctx.data:
             raise ValueError("prefill_batch must divide over data")
-        self._seq_div = ctx.depth * ctx.rows    # sequence-shard divisor
+        # sequence-shard divisor: (depth, row), or col in Megatron-SP
+        self._seq_div = self.mesh.axis_size(ctx.seq_shard_axes)
         self.stats = EngineStats()
         self.requests = []
 

@@ -5,12 +5,16 @@
         collectives summa_exact serve_engine [--device cpu]
 
 The mesh is [rows, cols, depth] = [2, 2, 1] at 4 ranks and [2, 2, 2] at 8
-(``--layout data,depth,rows,cols`` sets another).  Checks:
+(``--layout data,depth,rows,cols`` sets another); ``--mode megatron1d``
+runs the paper's 1-D baseline (``MegatronOps``) on cols = the world size,
+or on ``--layout data,1,1,cols``.  Checks:
 
 - ``collectives``: each collective of ``core/collectives.py`` against a
   numpy model of the same ranks' inputs, the backward of each
   differentiable one against a numpy model of its transpose, and the
-  token rows embed's reduce-scatter keeps against ``shard_tokens``;
+  token rows embed's reduce-scatter keeps against ``shard_tokens``; in
+  Megatron also the loss of the seq-sharded plan (Megatron-SP) against
+  the train plan's on the same tokens;
 - ``summa_exact``: ``tesseract_matmul`` on the fused schedule (kernel #1)
   and the ring (kernel #2) against the unsharded product, fp32 within
   1e-5 of the product's largest entry (and bf16 within 1e-2 on the card);
@@ -23,7 +27,7 @@ The mesh is [rows, cols, depth] = [2, 2, 1] at 4 ranks and [2, 2, 2] at 8
   preempt in every KV group; the loss refuses to run across ranks.
   ``--cases FILE`` (JSON list; keys: name, schedule, arch, reduced, layers,
   kv_heads, params (an .npz of the reference's global tree, from
-  ``flatten_params``), n_slots, block_size, num_blocks, max_seq_len,
+  ``convert.flatten_params``), n_slots, block_size, num_blocks, max_seq_len,
   preempt) gives other cases, and ``--out FILE`` receives every case's ids
   (rank 0 writes); the loss runs across ranks and equals one rank's;
 - ``train_parity``: training on the mesh against the one-rank port on the
@@ -31,7 +35,9 @@ The mesh is [rows, cols, depth] = [2, 2, 1] at 4 ranks and [2, 2, 2] at 8
   yi-6b, KV heads sharded, and reduced smollm-360m, KV replicated and q
   heads padded; on the card yi-6b at full width, 2 layers), on the fused
   and the ring schedule, with ``reduce_dgrad_in_op`` on and off (and once
-  with the fused backward's cache knobs flipped): the loss, every synced
+  with the fused backward's cache knobs flipped; Megatron has one run, and
+  on the CPU a reduced yi-6b case with its KV heads sharded over col): the
+  loss, every synced
   gradient leaf reassembled (``convert.unshard_params``), and the params
   after 2 AdamW steps; then ZeRO-1 against the replicated
   optimizer (params after 2 steps, and each leaf's state slice 1/zn of its
@@ -56,8 +62,8 @@ import torch
 
 from ..configs.base import RunConfig
 from ..configs.base import ShapeSpec
-from ..convert import (grads_to_numpy, params_from_jax, params_to_numpy,
-                       shard_params, unshard_params)
+from ..convert import (grads_to_numpy, load_params, params_from_jax,
+                       params_to_numpy, shard_params, unshard_params)
 from ..core import collectives as col
 from ..core.api import ParallelContext
 from ..core.mesh import (AXES, GROUP_AXES, Mesh, init_distributed,
@@ -71,6 +77,7 @@ from ..runtime.steps import (build_train_step, init_opt_state, leaf_layouts,
                              sync_grads)
 
 LAYOUTS = {1: (1, 1, 1, 1), 4: (1, 1, 2, 2), 8: (1, 2, 2, 2)}
+MODES = ("tesseract", "summa2d", "megatron1d")
 
 # serve requests of the CPU cases: prompts in one prefill bucket (16) so
 # the reference engine the tests compare with compiles few steps
@@ -138,7 +145,9 @@ def check_collectives(mesh: Mesh, dev, args):
         same(col.all_gather_cat(mesh, x, axes), np.concatenate(list(blocks)),
              f"all_gather_cat {axes}")
         close(col.psum(mesh, x, axes), blocks.sum(0), f"psum {axes}")
+        close(col.psum_v(mesh, x, axes), blocks.sum(0), f"psum_v {axes}")
         same(col.pmax(mesh, x, axes), blocks.max(0), f"pmax {axes}")
+        same(col.pmax_v(mesh, x, axes), blocks.max(0), f"pmax_v {axes}")
         same(col.pmin(mesh, x, axes), blocks.min(0), f"pmin {axes}")
         # reduce-scatter: member m's input holds n blocks along dim; member
         # i keeps block i of the sum
@@ -162,32 +171,40 @@ def check_collectives(mesh: Mesh, dev, args):
         full = np.concatenate([vals[r] for r in mem], axis=-1)
         same(got, full.argmax(-1).astype(np.int32),
              f"distributed_argmax {axes}")
+    ctx = mesh.ctx
+    megatron = ctx.mode == "megatron1d"
     # the ring's shifts: over (row, col) for the skews, one axis for steps
+    # (a [q, q] grid; Megatron has none)
     q = mesh.sizes["col"]
     for name, perm, axes in (("skew_a", _perm_skew_a(q), ("row", "col")),
                              ("skew_w", _perm_skew_w(q), ("row", "col")),
                              ("shift col", _perm_shift(q), ("col",)),
                              ("shift row", _perm_shift(q), ("row",))):
+        if megatron:
+            break
         grp = _members(mesh, axes)
         src = [s for s, d in perm if d == grp.index(mesh.rank)][0]
         same(col.ppermute(mesh, x, axes, perm), base[grp[src]],
              f"ppermute {name}")
-    # embed's reduce-scatter over row keeps the token rows shard_tokens
-    # cuts: with table row v = v, each embedded row is its id
-    ctx = mesh.ctx
+    # embed's reduce-scatter keeps the token rows shard_tokens cuts: with
+    # table row v = v, each embedded row is its id.  The table is the
+    # vocab over row and the features over col in Tesseract, the vocab over
+    # col in Megatron.
+    v_loc = 8 * ctx.tp // (ctx.cols if megatron else ctx.rows)
+    vocab_axis = mesh.coords["col" if megatron else "row"]
     table = torch.arange(8 * ctx.tp, dtype=torch.float32, device=dev)
-    table = table[:, None].repeat(1, 2 * ctx.cols)
-    table = table.reshape(ctx.rows, -1, ctx.cols, 2)[
-        mesh.coords["row"], :, mesh.coords["col"]]
-    for plan, shape in ((Plan.for_shape("prefill"),
-                         (ctx.data, 4 * ctx.depth * ctx.rows)),
+    table = table[vocab_axis * v_loc:(vocab_axis + 1) * v_loc, None].repeat(
+        1, 2)
+    seq = 4 * mesh.axis_size(ctx.seq_shard_axes)
+    for plan, shape in ((Plan.for_shape("prefill"), (ctx.data, seq)),
                         (Plan.for_shape("decode"), (2 * ctx.batch_shards, 1))):
         ops = make_ops(ctx, mesh, plan)
-        ids = torch.from_numpy(rng.integers(0, table.shape[0] * ctx.rows,
-                                            shape)).to(dev)
+        ids = torch.from_numpy(rng.integers(0, 8 * ctx.tp, shape)).to(dev)
         ids = ops.host_block(ids, ops.tokens_in_axes())
         same(ops.embed(ids, table)[..., 0], ops.shard_tokens(ids).float()
              .cpu().numpy(), f"embed vs shard_tokens ({plan.kind})")
+    if megatron:
+        n_checked += _check_sp_loss(mesh, dev, rng)
     t = col.broadcast_scalar(mesh, float(mesh.rank + 7), dev)
     _agree(mesh, dev, t == 7.0, "broadcast_scalar")
     # backward: member m's cotangent of the output is cot[m]; the gradient
@@ -208,6 +225,9 @@ def check_collectives(mesh: Mesh, dev, args):
         close(grad_of(lambda t: col.pvary(mesh, t, axes),
                       cot[mesh.rank, :4]), cot[mem, :4].sum(0),
               f"pvary backward (psum) {axes}")
+        close(grad_of(lambda t: col.psum_v(mesh, t, axes),
+                      cot[mesh.rank, :4]), cot[mem, :4].sum(0),
+              f"psum_v backward (psum) {axes}")
         close(grad_of(lambda t: col.all_gather_cat(mesh, t, axes),
                       cot[mesh.rank]),
               cot[mem, 4 * i:4 * (i + 1)].sum(0),
@@ -224,6 +244,34 @@ def check_collectives(mesh: Mesh, dev, args):
               f"psum_scatter_dim backward (all-gather) {axes}")
     log(mesh, f"PASS collectives ({n_checked} comparisons on "
               f"{mesh.size} ranks)")
+
+
+def _check_sp_loss(mesh: Mesh, dev, rng) -> int:
+    """Megatron's CE loss on the seq-sharded plan (each col rank's
+    sequence shard, the chunks gathered over col) against the train plan's
+    (every col rank all the tokens) on the same hidden states, labels and
+    vocab-sharded head: the sums within 1e-5 on every rank."""
+    ctx = mesh.ctx
+    B, S, h, v_loc = 2 * ctx.data, 4 * ctx.cols, 6, 5
+    x = rng.standard_normal((B, S, h)).astype(np.float32)
+    head = rng.standard_normal((v_loc * ctx.cols, h)).astype(np.float32)
+    labels = rng.integers(0, v_loc * ctx.cols - 2, (B, S))
+    w = torch.from_numpy(head).to(dev).narrow(
+        0, mesh.coords["col"] * v_loc, v_loc)
+    sums = []
+    for plan in (Plan.for_shape("train"), Plan.for_shape("prefill")):
+        ops = make_ops(ctx, mesh, plan)
+        xb = ops.shard_tokens(ops.host_block(
+            torch.from_numpy(x).to(dev), ops.tokens_in_axes()))
+        lab = ops.host_block(torch.from_numpy(labels).to(dev),
+                             ops.tokens_in_axes())
+        ls, cnt = ops.ce_loss(xb, w, lab, vocab_real=v_loc * ctx.cols - 2,
+                              loss_chunk=2)
+        sums.append(np.array([float(ls), float(cnt)]))
+    ok = bool(np.allclose(sums[1], sums[0], rtol=1e-5, atol=0))
+    _agree(mesh, dev, ok, f"Megatron-SP loss {sums[1]} vs the train "
+                          f"plan's {sums[0]}")
+    return 1
 
 
 # ----------------------------------------------------------- summa_exact
@@ -304,7 +352,7 @@ def check_summa_exact(mesh: Mesh, dev, args):
 
 # ---------------------------------------------------------- serve_engine
 
-def _default_cases(device):
+def _default_cases(device, ctx):
     if device.type == "cuda":
         common = dict(arch="yi-6b", layers=4, n_slots=8, block_size=16,
                       num_blocks=1024, max_seq_len=2560,
@@ -312,7 +360,9 @@ def _default_cases(device):
     else:
         common = dict(arch="yi-6b", reduced=True, n_slots=4, block_size=4,
                       num_blocks=64, max_seq_len=64)
-    return [dict(common, name=s, schedule=s) for s in ("fused", "ring")]
+    # Megatron has no SUMMA grid to ring over
+    scheds = ("fused",) if ctx.mode == "megatron1d" else ("fused", "ring")
+    return [dict(common, name=s, schedule=s) for s in scheds]
 
 
 def _prompts(case, vocab):
@@ -346,33 +396,10 @@ def _models(mesh, dev, case):
     one = build_model(arch, ParallelContext(attn_impl="auto"), run,
                       device=dev, seed=0)
     if "params" in case:
-        with np.load(case["params"]) as z:
-            tree = _unflatten(dict(z))
+        tree = load_params(case["params"])
         params_from_jax(tree, one)
         params_from_jax(shard_params(tree, arch, ctx, mesh.coords), model)
     return model, one
-
-
-def _unflatten(flat):
-    tree = {}
-    for key, arr in flat.items():
-        parts = key.split("/")
-        node = tree
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = arr
-    return tree
-
-
-def flatten_params(tree, prefix=""):
-    """The reference's param tree as {"a/b": array} for an .npz file."""
-    out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            out.update(flatten_params(v, f"{prefix}{k}/"))
-        else:
-            out[f"{prefix}{k}"] = np.asarray(v)
-    return out
 
 
 def _run_engine(model, case, prompts, new, device):
@@ -402,7 +429,7 @@ def _logit_error(model, one, prompt, steps, bs, device):
     |logits|, whether the greedy ids agree).  The request sits in slot 0
     (KV group 0); the mesh's other slots, one per KV group, hold scratch."""
     from ..runtime.steps import paged_reshard
-    seq_div = model.ctx.depth * model.ctx.rows
+    seq_div = model.mesh.axis_size(model.ctx.seq_shard_axes)
     unit = bs * seq_div
     bucket = -(-len(prompt) // unit) * unit
     nb = -(-(bucket + steps) // bs)
@@ -443,7 +470,7 @@ def _logit_error(model, one, prompt, steps, bs, device):
 
 
 def check_serve_engine(mesh: Mesh, dev, args):
-    cases = _default_cases(dev)
+    cases = _default_cases(dev, mesh.ctx)
     if args.cases:
         with open(args.cases) as f:
             cases = json.load(f)
@@ -515,10 +542,16 @@ TRAIN_LR = 0.1          # large enough that the second step moves the params
 LR_SUM = TRAIN_LR / 100  # cosine_lr of steps 0 and 1 (warmup 100)
 
 
-def _train_cases(device):
+def _train_cases(device, ctx):
     if device.type == "cuda":
         return [dict(arch="yi-6b", layers=2, batch=4, seq=256, chunk=128)]
-    return [dict(arch="yi-6b", reduced=True, batch=4, seq=16, chunk=8),
+    # Megatron at cols 4 replicates reduced yi-6b's 2 KV heads: one case
+    # shards 4 over col
+    sharded = ([dict(arch="yi-6b", reduced=True, batch=4, seq=16, chunk=8,
+                     model=dict(num_kv_heads=4))]
+               if ctx.mode == "megatron1d" else [])
+    return sharded + [
+            dict(arch="yi-6b", reduced=True, batch=4, seq=16, chunk=8),
             dict(arch="smollm-360m", reduced=True, batch=4, seq=16,
                  chunk=8),
             # layernorm (its mean and inv pvary'd) and biases (the KV
@@ -528,11 +561,15 @@ def _train_cases(device):
                  grid=[("fused", True, False, True)])]
 
 
-def _train_grid(device):
+def _train_grid(device, ctx):
     """(schedule, in-op dW reduction, fused cache knobs flipped, ZeRO-1
     run) per mesh run.  The card, where every comparison moves a
     full-width tree through the host, runs the fused and the ring schedule
-    with the in-op reduction and the fused one deferred, ZeRO-1 once."""
+    with the in-op reduction and the fused one deferred, ZeRO-1 once.
+    Megatron has no SUMMA product (no schedule, no in-op dW, no cached
+    gathers): one run, then ZeRO-1."""
+    if ctx.mode == "megatron1d":
+        return [("fused", True, False, True)]
     if device.type == "cuda":
         return [("fused", True, False, True), ("ring", True, False, False),
                 ("fused", False, False, False)]
@@ -590,7 +627,7 @@ def check_train_parity(mesh: Mesh, dev, args):
     tol = TRAIN_TOL[dev.type]
     worst = dict(loss=0.0, grad=0.0, param=0.0, zero1=0.0)
     n_runs = 0
-    for case in _train_cases(dev):
+    for case in _train_cases(dev, mesh.ctx):
         t0 = time.perf_counter()
         cfg = (get_reduced(case["arch"]) if case.get("reduced")
                else get_arch(case["arch"])).model
@@ -612,7 +649,7 @@ def check_train_parity(mesh: Mesh, dev, args):
         want_metrics, _ = _two_steps(one, shape, cfg, case, dev)
         want_params = params_to_numpy(one)
         del one
-        grid = case.get("grid") or _train_grid(dev)
+        grid = case.get("grid") or _train_grid(dev, mesh.ctx)
         for k, (sched, inop, flip, zero1) in enumerate(grid):
             t1 = time.perf_counter()
             # flip: the fused backward keeps A from the forward and
@@ -744,6 +781,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--layout", default="",
                     help="data,depth,rows,cols (default by world size)")
+    ap.add_argument("--mode", default="tesseract", choices=MODES,
+                    help="op set: megatron1d is the 1-D baseline (rows = "
+                         "depth = 1; default layout 1,1,1,world)")
     ap.add_argument("--cases", default="", help="JSON list of serve cases")
     ap.add_argument("--out", default="", help="serve_engine ids (JSON)")
     args = ap.parse_args(argv)
@@ -752,12 +792,15 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     world = int(os.environ.get("WORLD_SIZE", 1))
+    default = ((1, 1, 1, world) if args.mode == "megatron1d"
+               else LAYOUTS[world])
     data, depth, rows, cols = (tuple(int(v) for v in args.layout.split(","))
-                               if args.layout else LAYOUTS[world])
-    ctx = ParallelContext(data=data, depth=depth, rows=rows, cols=cols)
+                               if args.layout else default)
+    ctx = ParallelContext(mode=args.mode, data=data, depth=depth, rows=rows,
+                          cols=cols)
     mesh = Mesh(ctx)
-    log(mesh, f"mdchecks: {world} ranks, data={data} depth={depth} "
-              f"rows={rows} cols={cols}, {dev.type}"
+    log(mesh, f"mdchecks: {world} ranks, {args.mode}, data={data} "
+              f"depth={depth} rows={rows} cols={cols}, {dev.type}"
               + (f" ({torch.cuda.get_device_name(dev)})"
                  if dev.type == "cuda" else ""))
     try:

@@ -93,12 +93,11 @@ def test_entry_points_default_to_cuda():
 
 def test_multi_device_layouts_raise():
     """Layouts the port does not run raise naming their ROADMAP item: a seq
-    axis, megatron1d, and the ssm family across ranks; a mesh of several
-    ranks without torch.distributed asks for torchrun."""
+    axis, the gspmd op set, and the ssm family across ranks; a mesh of
+    several ranks without torch.distributed asks for torchrun."""
     cfg = get_reduced("yi-6b").model
     run = RunConfig(param_dtype="float32", compute_dtype="float32")
-    for ctx in (ParallelContext(seq=2),
-                ParallelContext(mode="megatron1d", cols=1)):
+    for ctx in (ParallelContext(seq=2), ParallelContext(mode="gspmd")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(cfg, ctx, run, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

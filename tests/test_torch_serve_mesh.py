@@ -31,8 +31,8 @@ from repro.models.registry import build_model as ref_build, get_reduced
 from repro.serve import EngineConfig as RefEngineConfig
 from repro.serve import InferenceEngine as RefEngine
 from repro.serve import SamplingParams as RefSampling
-from repro_torch.testing.mdchecks import (_new_tokens, _prompts,
-                                          flatten_params)
+from repro_torch.convert import flatten_params
+from repro_torch.testing.mdchecks import _new_tokens, _prompts
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ENGINE = dict(n_slots=4, block_size=4, max_seq_len=64)
