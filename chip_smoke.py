@@ -31,7 +31,8 @@ non-zero and prints no result:
    ring step (kernel #2, tesseract_mm_stream) against their plain versions
    at yi-6b's per-rank projection shapes at q = 2 and at one rank (prefill
    and decode rows), at smollm-360m's train projections and mamba2-1.3b's
-   prefill and decode projections (partial G tiles), ragged E in {1, 3,
+   prefill and decode projections at one rank and per rank at q = 2
+   (partial G tiles), ragged E in {1, 3,
    1000}, T in {1, 2, 4}, the wgmma route's edges (E in {17, 64, 65, 129,
    1000}, F 2000, G in {64, 320, 960, 5504}, F and G below 64), bases 16
    but not 128 bytes past an allocation, F and G not multiples of 8, bf16
@@ -60,7 +61,12 @@ non-zero and prints no result:
 9. ssm parity: mamba2-1.3b at full width and depth in fp32 (TF32 off),
    B = 2, T = 1000 (the SSD kernel at Q = 250) and 8 greedy decode steps,
    then the same teacher-forced through the plain version: ids identical,
-   every cache leaf within 1e-4 of its max;
+   every cache leaf within 1e-4 of its max; then the sequence-sharded
+   prefill's SSD math: ``ssd_chunked`` through the SSD kernel on the two
+   halves of 8 x 2048 tokens, chained by the mesh's local combine and
+   correction, against the whole sequence's y and final state (within
+   1e-4 of their max), and the kernel timed at the four-card prefill's
+   per-rank shape;
 10. serve: yi-6b at full width in bf16 through InferenceEngine (8 slots,
    block 16, 2048 blocks): 16 greedy requests of 128/512/1000/2000 prompt
    tokens and 32 new tokens each; the kernels' launch counters are zeroed
@@ -1100,8 +1106,11 @@ def _path_mm_shapes():
     wq/wo, wk/wv, gate/up, down) and its fp32 parity batch (E 2 x 1024),
     and mamba2-1.3b's projections (w_z/w_x, w_dt, w_out) at the serve
     phase's prefill and decode rows and the fp32 parity phase's (B 2 x T
-    1000, decode B 2).  Their G of 960, 320 and 64 end in a partial 128-wide
-    tile, which yi-6b's widths never do."""
+    1000, decode B 2), and at T = q = 2 their per-rank blocks on the
+    four-card mesh [1, 1, 2, 2] at that traffic (F and G halved; the
+    prefill's rows over the two sequence shards, the decode's batch over
+    them).  Their G of 960, 320, 64 and 32 end in a partial 128-wide tile,
+    which yi-6b's widths never do."""
     from repro_torch.models.registry import get_arch
     sm, mb = get_arch(TRAIN_ARCH).model, get_arch(SSM_ARCH).model
     h, qd = sm.d_model, sm.num_heads * sm.resolved_head_dim
@@ -1110,10 +1119,14 @@ def _path_mm_shapes():
     di = mb.ssm_expand * mb.d_model
     ssm = {(mb.d_model, di), (mb.d_model, di // mb.ssm_head_dim),
            (di, mb.d_model)}
+    q = 2
     return ([(1, E, F, G) for E in (TRAIN_SEQ * TRAIN_BATCH, 2 * 1024)
              for F, G in sorted(train)]
             + [(1, E, F, G)
                for E in (SSM_BATCH * SSM_PROMPT, SSM_BATCH, 2 * 1000, 2)
+               for F, G in sorted(ssm)]
+            + [(q, E, F // q, G // q)
+               for E in (SSM_BATCH * SSM_PROMPT // q, SSM_BATCH // q)
                for F, G in sorted(ssm)])
 
 
@@ -1129,7 +1142,8 @@ def phase_summa_kernels():
     """Kernels #1 and #2 against their plain versions: yi-6b's per-rank
     projection shapes at q = 2 (T 2; E 1024 and 4; F x G of wq/wo, wk/wv,
     gate/up, down) and at one rank (T 1; E 2048 and 8), the train and ssm
-    paths' shapes (``_path_mm_shapes``), ragged E in {1, 3, 1000} at T in
+    paths' shapes, the ssm's per-rank ones at q = 2 among them
+    (``_path_mm_shapes``), ragged E in {1, 3, 1000} at T in
     {1, 2, 4}, the wgmma route's edges (E in {17, 64, 65, 129, 1000} just
     past the skinny tile and around its 64-row halves, F 2000 not a multiple
     of its 64-deep stages, G in {64, 320, 960, 5504} ending inside a
@@ -1475,15 +1489,7 @@ def phase_ssd_timings(launches, worst):
     worst["ssd_intra"] = max(worst["ssd_intra"], e)
     ms = time_ms(lambda: ssd_intra(*args))
     plain_ms = time_ms(lambda: ssd_intra_plain(*args))
-    # the work these inputs need: the causal half of the Q x Q products
-    # (scores once per chunk, Y per head) and the chunk-end states
-    pairs = Q * (Q + 1) // 2
-    flops = B * nc * (2 * pairs * N + H * (2 * pairs * P + 2 * Q * P * N))
-    nbytes = 4 * (sum(a.numel() for a in args) + B * nc * Q * H * P
-                  + B * nc * H * P * N)
-    t_ops, t_bytes = flops / H100_TF32_FLOPS, nbytes / H100_BYTES_PER_S
-    bound_ms = max(t_ops, t_bytes) * 1e3
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    flops, nbytes, bound_ms, bound_by = _ssd_bound(args)
     log(json.dumps({"timing": "ssd_intra", "shape": [B, nc, Q, H, P, N],
                     "dtype": "float32", "ms": ms,
                     "was_ms_recorded": WAS_MS["ssd_intra"],
@@ -1499,6 +1505,87 @@ def phase_ssd_timings(launches, worst):
                  launches=launches["ssd_intra"],
                  max_abs_err=worst["ssd_intra"], ms=ms, plain_ms=plain_ms,
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None)]
+
+
+def _ssd_bound(args):
+    """(FLOPs, bytes, bound ms, bound by) of the SSD kernel on ``args``:
+    the causal half of the Q x Q products (scores once per chunk, Y per
+    head) and the chunk-end states, over the TF32 peak; each input read
+    and each output written once, over the memory rate."""
+    B, nc, Q, H, P = args[0].shape
+    N = args[2].shape[-1]
+    pairs = Q * (Q + 1) // 2
+    flops = B * nc * (2 * pairs * N + H * (2 * pairs * P + 2 * Q * P * N))
+    nbytes = 4 * (sum(a.numel() for a in args) + B * nc * Q * H * P
+                  + B * nc * H * P * N)
+    t_ops, t_bytes = flops / H100_TF32_FLOPS, nbytes / H100_BYTES_PER_S
+    return (flops, nbytes, max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_ssd_shards(worst):
+    """The sequence-sharded prefill's SSD math on one card: mamba2-1.3b's
+    ``ssd_chunked`` through #7 on the two halves of a batch of 8 x 2048
+    tokens, the second half chained to the first by the mesh's local
+    combine (``collectives.linear_scan_carry``) and correction
+    (``models/ssm.py::chain_shard``), held to the whole sequence's y and
+    final state within ``SSD_TOL`` of their max.  The decay is slow
+    (log_a in -0.011..-0.001), so the first half's state reaches the
+    second half's outputs; the halves unchained must miss by more.  Then
+    #7 timed at the per-rank shape of the four-card prefill ([1, 1, 2, 2]:
+    B 8, nc 4, Q 256, H 32, P 64, N 128), beside its bound."""
+    from repro_torch.core.collectives import linear_scan_carry
+    from repro_torch.kernels.ssd import ssd_intra, ssd_intra_plain
+    from repro_torch.models.ssm import chain_shard, ssd_chunked
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    B, T, H, P, N, chunk = SSM_BATCH, SSM_PROMPT, 64, 64, 128, 256
+    x = randn(gen, B, T, H, P)
+    la = -(0.001 + 0.01 * torch.rand(B, T, H, generator=gen, device="cuda"))
+    Bm, Cm = randn(gen, B, T, N), randn(gen, B, T, N)
+    y_full, h_full, _ = ssd_chunked(x, la, Bm, Cm, chunk, use_pallas=True)
+    halves = (slice(0, T // 2), slice(T // 2, T))
+    outs = [ssd_chunked(*(t[:, s].contiguous() for t in (x, la, Bm, Cm)),
+                        chunk, use_pallas=True) for s in halves]
+    a_all = torch.stack([o[2] for o in outs])
+    b_all = torch.stack([o[1] for o in outs])
+    ys = []
+    for i, (s, (y, h, a)) in enumerate(zip(halves, outs)):
+        y, h = chain_shard(y, h, a, la[:, s], Cm[:, s],
+                           linear_scan_carry(a_all, b_all, i))
+        ys.append(y)
+    torch.cuda.synchronize()
+    y_max, h_max = float(y_full.abs().max()), float(h_full.abs().max())
+    e_y = max_err(torch.cat(ys, 1), y_full) / y_max
+    e_h = max_err(h, h_full) / h_max
+    e_off = max_err(torch.cat([o[0] for o in outs], 1), y_full) / y_max
+    log(f"ssd shards: {SSM_ARCH} ssd_chunked on two halves of {B} x {T} "
+        f"tokens, chained: y within {e_y:.3g} and the final state within "
+        f"{e_h:.3g} of their max (unchained, y misses by {e_off:.3g})")
+    check(e_y <= SSD_TOL and e_h <= SSD_TOL,
+          f"ssd shards: chained halves off the whole sequence: y {e_y:.3g}, "
+          f"state {e_h:.3g} of max")
+    check(e_off > 100 * SSD_TOL, f"ssd shards: the first half's state "
+          f"does not reach the second half's outputs ({e_off:.3g})")
+    del x, la, Bm, Cm, y_full, h_full, outs, ys, a_all, b_all
+    # #7 at the four-card per-rank shape
+    Bl, nc, Q, Hl = SSM_BATCH, SSM_PROMPT // 2 // 256, 256, H // 2
+    lal = -(0.3 + 0.7 * torch.rand(Bl, nc, Q, Hl, generator=gen,
+                                   device="cuda"))
+    args = (randn(gen, Bl, nc, Q, Hl, P), lal.contiguous(),
+            randn(gen, Bl, nc, Q, N), randn(gen, Bl, nc, Q, N))
+    _, e = _ssd_check(args, "ssd at the four-card per-rank shape")
+    worst["ssd_intra"] = max(worst["ssd_intra"], e)
+    ms = time_ms(lambda: ssd_intra(*args))
+    plain_ms = time_ms(lambda: ssd_intra_plain(*args))
+    flops, nbytes, bound_ms, bound_by = _ssd_bound(args)
+    log(json.dumps({"timing": "ssd_intra, per rank of the four-card "
+                              "prefill at [1, 1, 2, 2]",
+                    "shape": [Bl, nc, Q, Hl, P, N], "dtype": "float32",
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+                    "max_abs_err": e}))
+    del args
+    torch.cuda.empty_cache()
 
 
 def _bound(flops, nbytes):
@@ -1777,6 +1864,7 @@ def main():
         phase(phase_megatron)
         phase(phase_train_parity)
         phase(phase_ssm_parity)
+        phase(phase_ssd_shards, worst)
         launches, counts = phase(phase_serve)
         train_launches = phase(phase_train)
         ssm_launches = phase(phase_ssm_serve)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from .core.mesh import AXES, axis_index, axis_size, local_block
+from .models.ssm import ssm_param_specs
 from .models.transformer import dense_param_specs
 
 
@@ -86,20 +87,29 @@ def grads_to_numpy(model):
                                    else np.zeros(p.shape, np.float32)))
 
 
+def param_specs(cfg, ctx):
+    """The family's spec table of ``cfg`` under ``ctx``:
+    ``dense_param_specs`` or ``ssm_param_specs``."""
+    if cfg.family == "ssm":
+        return ssm_param_specs(cfg, ctx)
+    return dense_param_specs(cfg, ctx)
+
+
 def shard_params(tree, cfg, ctx, coords):
-    """One rank's local blocks of the reference's global dense param tree
-    (``DenseLM.init``, as numpy arrays) on the mesh of ``ctx``, the rank at
-    ``coords`` ({"data", "depth", "row", "col"}), in the same tree layout:
+    """One rank's local blocks of the reference's global param tree
+    (``DenseLM.init`` or ``MambaLM.init``, as numpy arrays) on the mesh of
+    ``ctx``, the rank at ``coords`` ({"data", "depth", "row", "col"}), in
+    the same tree layout:
     each leaf zero-padded to the layout's padded shape where it has the
     logical one (vocab and q heads, as the reference's ``winit_padded``
     pads: a tree drawn for one device serves every layout), then cut by the
-    reference's partition specs (``models/transformer.py::
-    dense_param_specs``, blocks stacked on a leading [L]).
+    reference's partition specs (``param_specs``, blocks stacked on a
+    leading [L]).
     ``params_from_jax(shard_params(...), model)`` loads them into that
     rank's model."""
     sizes = {"data": ctx.data, "depth": ctx.depth, "row": ctx.rows,
              "col": ctx.cols}
-    top, block = dense_param_specs(cfg, ctx)
+    top, block = param_specs(cfg, ctx)
 
     def cut(arr, spec_entry, lead=()):
         logical, padded, spec = spec_entry
@@ -131,7 +141,7 @@ def unshard_params(trees, cfg, ctx):
         raise ValueError(f"{len(trees)} trees for a mesh of {ctx.size}")
     coords = [dict(zip(AXES, (int(c) for c in np.unravel_index(r, shape))))
               for r in range(ctx.size)]
-    top, block = dense_param_specs(cfg, ctx)
+    top, block = param_specs(cfg, ctx)
 
     def join(blocks, spec_entry, lead=()):
         logical, padded, spec = spec_entry

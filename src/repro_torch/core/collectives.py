@@ -261,6 +261,73 @@ def ppermute(mesh: Mesh, x, axes, perm, *, wait: bool = True):
     return buf
 
 
+def halo_exchange_left(mesh: Mesh, x, axes, halo: int, axis: int):
+    """The last ``halo`` entries of ``x`` along ``axis`` on the previous
+    shard in the lexicographic order of ``axes``; the first shard gets
+    zeros (the reference's ``halo_exchange_left``: the causal conv's left
+    context across sequence shards).  One ``ppermute`` around the cyclic
+    chain 0 -> 1 -> ... -> n-1 -> 0, so every member sends and receives
+    one block; the block the first shard receives is dropped.  Serve only:
+    not differentiable."""
+    tail = x.narrow(axis, x.shape[axis] - halo, halo)
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return torch.zeros_like(tail)
+    recv = ppermute(mesh, tail, axes, tuple((i, (i + 1) % n)
+                                            for i in range(n)))
+    return torch.zeros_like(recv) if mesh.index(axes) == 0 else recv
+
+
+def distributed_linear_scan_carry(mesh: Mesh, a_prod, b_red, axes):
+    """The state entering this shard of the recurrence h = a h + b chained
+    across the shards over ``axes``, zeros for the first (the reference's
+    ``distributed_linear_scan_carry``).  ``a_prod`` [...]: the product of
+    a over this shard's steps; ``b_red`` [..., *rest]: the state the shard
+    ends in from a zero start.  One all-gather of both summaries (packed
+    into one buffer), then the exclusive combine h_{i+1} = a_i h_i + b_i
+    up to this shard, locally (``linear_scan_carry``).  ``a_prod``
+    travels at its own shape and is broadcast over ``b_red``'s trailing
+    dims after the gather, where the reference broadcasts it before: the
+    same products on 1/prod(rest) of its bytes.  Serve only: not
+    differentiable."""
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return torch.zeros_like(b_red)
+    na = a_prod.numel()
+    flat = torch.cat([a_prod.reshape(-1), b_red.reshape(-1)])
+    got = all_gather_inv(mesh, flat, axes)                 # [n, na + nb]
+    return linear_scan_carry(got[:, :na].reshape((n,) + a_prod.shape),
+                             got[:, na:].reshape((n,) + b_red.shape),
+                             mesh.index(axes))
+
+
+def linear_scan_carry(a_all, b_all, idx: int):
+    """The local combine of ``distributed_linear_scan_carry``: from every
+    shard's summaries, a_all [n, ...] and b_all [n, ..., *rest], the state
+    entering shard ``idx`` (h_0 = 0, h_{i+1} = a_i h_i + b_i), a_i
+    broadcast over b's trailing dims."""
+    a_all = a_all.reshape(a_all.shape + (1,) * (b_all.ndim - a_all.ndim))
+    h = torch.zeros_like(b_all[0])
+    for i in range(idx):
+        h = a_all[i] * h + b_all[i]
+    return h
+
+
+def last_shard_value(mesh: Mesh, x, axes):
+    """The value the last shard over ``axes`` (lexicographic) holds, on
+    every shard of ``axes`` (the reference's ``last_shard_value``, a psum
+    of ``x`` masked to that shard: here one broadcast from it).  Serve
+    only: not differentiable."""
+    group = mesh.group(axes)
+    if group is None:
+        return x
+    last = mesh.axis_size(axes) - 1
+    y = (x.contiguous() if mesh.index(axes) == last else
+         torch.empty(x.shape, dtype=x.dtype, device=x.device))
+    dist.broadcast(y, src=_global_rank(mesh, axes, last), group=group)
+    return y
+
+
 def _global_rank(mesh: Mesh, axes, linear: int) -> int:
     """Global rank of the member at ``linear`` over ``axes``."""
     coords = {}

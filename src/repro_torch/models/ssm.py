@@ -1,5 +1,6 @@
 """Mamba2 (SSD, state-space duality) LM: PyTorch port of
-``repro.models.ssm``, the serve path at the one-device layout.
+``repro.models.ssm``, the serve path, on one rank or across the Tesseract
+mesh.
 
 The SSD state recurrence is chunked: within a chunk of Q tokens the output
 is a masked Q x Q product (``kernels/ssd.py``: the Hopper kernel when
@@ -8,20 +9,30 @@ lives), and the chunk-end states are chained across chunks by a linear
 scan (a Python loop over chunks in place of ``lax.scan``).  B and C have
 one group, shared by all heads.
 
-Serving entry points, both without autograd: ``prefill(tokens)`` gives the
-greedy next ids and the cache (per-layer SSM states and the causal conv's
-tails), and ``decode(cache, ids, pos)`` advances every sequence by one
-token through the state recurrence.  ``MambaLM`` has no paged decode path,
-so ``InferenceEngine`` refuses it (the reference's guard); it is served by
-these static steps, as the reference's ``build_prefill_step`` /
-``build_decode_step`` serve it.
+On the mesh (``tesseract`` and ``summa2d``) the parameters are one rank's
+local blocks of the reference's global tree, cut by its partition specs
+(``ssm_param_specs``): the projections w_z, w_x, w_dt and w_out are SUMMA
+weights, the heads (and so d_inner, the state's heads and conv_x's
+channels) go over col, and B and C stay replicated over col.  The
+prefill plan shards the sequence over (depth, row), so a shard needs
+what the shards before it hold: the causal conv's left halo
+(``collectives.halo_exchange_left``) and the SSD state entering it
+(``collectives.distributed_linear_scan_carry``, then the correction
+y += (C_t . h_in) exp(cumsum log_a)); the cache takes the last shard's
+final states and conv tails (``collectives.last_shard_value``).  Megatron
+(``megatron1d``) refuses, as the reference does.
 
-At one device the reference's sequence-sharded prefill branches are the
-identity: the halo of the causal conv is zeros, the state entering the
-single shard is zero, and the last shard's state is this shard's.  The
-port keeps the local math only: across ranks ``MambaLM`` raises (ROADMAP
-Queue A: the ssm family across ranks).  Not ported yet (ROADMAP Queue A,
-item A3): ``loss`` and ssm training.
+Serving entry points, both without autograd, each taking host-layout
+inputs every rank passes alike: ``prefill(tokens)`` gives the greedy
+next ids of every prompt (on every rank) and the cache (per-layer SSM
+states and the causal conv's tails) with the batch over data;
+``decode(cache, ids, pos)`` advances every sequence by one token through
+the state recurrence, on the cache layout of ``decode_plan`` (the batch
+over (data, depth, row), over data, or whole: ``cache_batch_axes``).
+``runtime/serve_steps.py`` holds the static steps around them and the
+prefill-to-decode reshard.  ``MambaLM`` has no paged decode path, so
+``InferenceEngine`` refuses it (the reference's guard).  Not ported yet
+(ROADMAP Queue A, item A3: ssm training): ``loss``.
 """
 from __future__ import annotations
 
@@ -29,11 +40,13 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig, RunConfig, round_up
+from ..core import collectives as col
 from ..core.api import ParallelContext
 from ..core.mesh import Mesh
 from ..core.ops import Plan, make_ops, ops_last_token
 from ..kernels.ssd import ssd_intra, ssd_intra_plain
-from .transformer import WINIT_SCALE, _param
+from .transformer import (WINIT_SCALE, alloc_local_params,
+                          draw_local_params)
 
 CONV_INIT_SCALE = 0.2    # reference: winit(..., 0.2) for conv_x/B/C
 
@@ -49,23 +62,65 @@ def silu(x):
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
+def ssm_param_specs(cfg: ModelConfig, ctx: ParallelContext):
+    """The reference's ``MambaLM`` specs (``repro/models/ssm.py:155-170``
+    for the blocks, ``DenseLM.specs`` for embed, head and ln_f) under the
+    Tesseract op set, in ``dense_param_specs``'s form: (top-level params,
+    per-layer params), each {name: (logical shape, padded global shape,
+    per-dim mesh axes)}, in the modules' registration order."""
+    if ctx.mode == "megatron1d":
+        raise NotImplementedError("ssm arch runs in tesseract modes")
+    h, N, K = cfg.d_model, cfg.ssm_state, cfg.ssm_conv
+    di = cfg.ssm_expand * h
+    H = di // cfg.ssm_head_dim
+    v_pad = round_up(cfg.vocab_size,
+                     make_ops(ctx, None, Plan()).vocab_pad_multiple())
+    w2d = (("row",), ("col",))                 # spec_w2d, spec_w_down
+    to_rep = (("col",), ())                    # spec_w_to_replicated
+    vec = (("col",),)                          # spec_vec, spec_norm
+
+    def same(shape, spec):
+        return (shape, shape, spec)
+
+    top = {"embed": ((cfg.vocab_size, h), (v_pad, h), w2d),
+           "head": ((cfg.vocab_size, h), (v_pad, h),
+                    (("depth", "row", "col"), ())),
+           "ln_f": same((h,), vec)}
+    block = {"ln": same((h,), vec),
+             "w_z": same((h, di), w2d), "w_x": same((h, di), w2d),
+             "w_B": same((h, N), to_rep), "w_C": same((h, N), to_rep),
+             "w_dt": same((h, H), w2d),
+             "dt_bias": same((H,), vec), "A_log": same((H,), vec),
+             "Dskip": same((H,), vec),
+             # [K, C]: the channels over col (replicated for B and C)
+             "conv_x": same((K, di), ((), ("col",))),
+             "conv_B": same((K, N), ((), ())),
+             "conv_C": same((K, N), ((), ())),
+             "ln_y": same((di,), vec),
+             "w_out": same((di, h), w2d)}
+    return top, block
+
+
 def ssd_chunked(x, log_a, Bm, Cm, chunk: int, use_pallas: bool = False):
     """SSD scan.  x: [B, T, H, P]; log_a: [B, T, H]; Bm/Cm: [B, T, N].
-    Returns (y [B, T, H, P] in x's dtype, h_last [B, H, P, N] float32).
+    Returns (y [B, T, H, P] in x's dtype, h_last [B, H, P, N] float32,
+    a_prod [B, H] = exp(sum_t log_a), the sequence's decay product, which
+    chains a sequence shard's state to the next).
 
     The chunk shrinks to divide T, as the reference's does (T = 1000 gives
-    Q = 250).  The reference's third output, the shard's decay product for
-    the cross-device chain, comes back with that chain (ROADMAP A1)."""
+    Q = 250)."""
     Bsz, T, H, P = x.shape
     N = Bm.shape[-1]
     Q = min(chunk, T)
     while T % Q:
         Q -= 1
     nc = T // Q
-    xr = x.reshape(Bsz, nc, Q, H, P)
-    lar = log_a.reshape(Bsz, nc, Q, H)
-    Br = Bm.reshape(Bsz, nc, Q, N)
-    Cr = Cm.reshape(Bsz, nc, Q, N)
+    # the kernel reads contiguous inputs (a no-op for the mixer's, which
+    # are fresh tensors)
+    xr = x.reshape(Bsz, nc, Q, H, P).contiguous()
+    lar = log_a.reshape(Bsz, nc, Q, H).contiguous()
+    Br = Bm.reshape(Bsz, nc, Q, N).contiguous()
+    Cr = Cm.reshape(Bsz, nc, Q, N).contiguous()
     intra = ssd_intra if use_pallas else ssd_intra_plain
     Yd, S_c = intra(xr, lar, Br, Cr)      # [B,nc,Q,H,P], [B,nc,H,P,N]
 
@@ -83,73 +138,68 @@ def ssd_chunked(x, log_a, Bm, Cm, chunk: int, use_pallas: bool = False):
     Yi = torch.einsum("bcin,bchpn->bcihp", Cr, h_ins)
     Yi = Yi * torch.exp(cum)[..., None]
     y = (Yd + Yi).reshape(Bsz, T, H, P)
-    return y.to(x.dtype), h
+    a_prod = torch.exp(torch.sum(log_a, dim=1))             # [B,H]
+    return y.to(x.dtype), h, a_prod
 
 
-class MambaBlock(nn.Module):
-    """One layer's parameters, named as the reference's ``blocks`` dict."""
-
-    def __init__(self, cfg: ModelConfig, dtype, device):
-        super().__init__()
-        h, N, K = cfg.d_model, cfg.ssm_state, cfg.ssm_conv
-        di = cfg.ssm_expand * h
-        H = di // cfg.ssm_head_dim
-        P = lambda *shape: _param(shape, dtype, device)
-        self.ln = P(h)
-        self.w_z, self.w_x = P(h, di), P(h, di)
-        self.w_B, self.w_C = P(h, N), P(h, N)
-        self.w_dt = P(h, H)
-        self.dt_bias, self.A_log, self.Dskip = P(H), P(H), P(H)
-        self.conv_x, self.conv_B, self.conv_C = P(K, di), P(K, N), P(K, N)
-        self.ln_y = P(di)
-        self.w_out = P(di, h)
+def chain_shard(y, h_last, a_prod, log_a, Cm, h_in):
+    """A sequence shard's SSD output and final state once the state h_in
+    [B, H, P, N] entering it is known (``ssd_chunked`` started it from
+    zero): y [B, T, H, P] gains (C_t . h_in) exp(cumsum_t log_a) and
+    h_last gains a_prod h_in, in fp32 (the reference's seq-sharded branch,
+    ``repro/models/ssm.py:216-229``).  Cm: the post-conv C [B, T, N]."""
+    cum = torch.cumsum(log_a, dim=1)                        # [B,T,H]
+    corr = torch.einsum("btn,bhpn->bthp", Cm.float(), h_in)
+    y = (y.float() + corr * torch.exp(cum)[..., None]).to(y.dtype)
+    return y, a_prod[..., None, None] * h_in + h_last
 
 
 class MambaLM(nn.Module):
-    """Mamba2 LM on one device: embed, ``num_layers`` SSD blocks, the final
-    rmsnorm and an untied head."""
+    """Mamba2 LM: embed, ``num_layers`` SSD blocks, the final rmsnorm and
+    an untied head, on one rank's blocks of the mesh of ``ctx``."""
 
     def __init__(self, cfg: ModelConfig, ctx: ParallelContext, run: RunConfig,
                  *, device: torch.device, generator: torch.Generator,
                  mesh: Mesh | None = None):
         super().__init__()
-        if ctx.size > 1 or ctx.mode == "megatron1d":
-            raise NotImplementedError(
-                "MambaLM runs at one rank on the Tesseract op set (ROADMAP "
-                "Queue A, item A1: the ssm family across ranks, with the "
-                "seq-sharded prefill branches)")
-        self.mesh = mesh if mesh is not None else Mesh(ctx)
-        self.cfg, self.ctx, self.run = cfg, ctx, run
-        self.device = device
-        probe = make_ops(self.ctx, self.mesh, Plan.for_shape("train"))
-        self.v_pad = round_up(cfg.vocab_size, probe.vocab_pad_multiple())
-        self.pdt = getattr(torch, run.param_dtype)
-        self.cdt = getattr(torch, run.compute_dtype)
+        if ctx.mode == "megatron1d":
+            # the reference's refusal (repro/models/ssm.py:110)
+            raise NotImplementedError("ssm arch runs in tesseract modes")
         self.d_inner = cfg.ssm_expand * cfg.d_model
         self.n_heads = self.d_inner // cfg.ssm_head_dim
+        if self.n_heads % ctx.cols:
+            raise ValueError("ssm heads must divide cols")
+        self.cfg, self.ctx, self.run = cfg, ctx, run
+        self.device = device
+        self.pdt = getattr(torch, run.param_dtype)
+        self.cdt = getattr(torch, run.compute_dtype)
+        self.heads_loc = self.n_heads // ctx.cols
         self.N = cfg.ssm_state
-        h = cfg.d_model
-        self.embed = _param((self.v_pad, h), self.pdt, device)
-        self.head = _param((self.v_pad, h), self.pdt, device)
-        self.ln_f = _param((h,), self.pdt, device)
-        self.blocks = nn.ModuleList(MambaBlock(cfg, self.pdt, device)
-                                    for _ in range(cfg.num_layers))
+        alloc_local_params(self, cfg, ctx, mesh, ssm_param_specs, self.pdt,
+                           device)
         self.reset_parameters(generator)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
         """The reference's init scales: matrices N(0, 0.02), conv weights
-        N(0, 0.2), norm scales, dt_bias and A_log zero, Dskip one."""
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "Dskip":
+        N(0, 0.2), norm scales, dt_bias and A_log zero, Dskip one
+        (``draw_local_params``)."""
+
+        def rule(name, p):
+            if name == "Dskip":
                 p.fill_(1.0)
             elif p.ndim == 1:
                 p.zero_()
-            elif leaf.startswith("conv_"):
-                p.normal_(0.0, CONV_INIT_SCALE, generator=generator)
             else:
-                p.normal_(0.0, WINIT_SCALE, generator=generator)
+                return (CONV_INIT_SCALE if name.startswith("conv_")
+                        else WINIT_SCALE)
+            return None
+
+        draw_local_params(self, generator, rule)
+
+    def tess_weight_names(self) -> set:
+        """The block params that flow only through ``tesseract_matmul``
+        (the reference's ``tess_weight_names``)."""
+        return {"w_z", "w_x", "w_dt", "w_out"}
 
     # ------------------------------------------------------------ helpers
     def _cast(self, blk):
@@ -162,71 +212,116 @@ class MambaLM(nn.Module):
     def _norm(self, ops, x, scale):
         return ops.rmsnorm(x, scale, self.cfg.norm_eps)
 
-    def cache_abstract(self, batch: int):
-        """(shape, dtype) of each cache leaf: "state" [L, B, H, P, N] float32
-        and the conv tails "conv_x" [L, B, K-1, d_inner], "conv_B" /
-        "conv_C" [L, B, K-1, N] in the compute dtype."""
+    def decode_plan(self, batch: int) -> Plan:
+        """The decode plan of a global batch: ``decode`` (the batch over
+        (data, depth, row)), or ``decode_dp`` / ``long_decode`` for a batch
+        too small to split over them."""
+        return Plan.for_shape("decode", global_batch=batch,
+                              batch_shards=self.ctx.batch_shards,
+                              data=self.ctx.data)
+
+    def cache_batch_axes(self, plan: Plan) -> tuple:
+        """Mesh axes the cache's batch dim is split over under ``plan``
+        (the reference's ``cache_abstract`` and ``prefill_cache_specs``):
+        the prefill cache over data, the decode cache over the plan's
+        token axes."""
+        if plan.kind == "decode":
+            return self.ctx.token_axes
+        if plan.kind in ("prefill", "decode_dp"):
+            return (self.ctx.axis_data,)
+        return ()
+
+    def cache_abstract(self, batch: int, plan: Plan | None = None):
+        """(shape, dtype) of this rank's block of each cache leaf for a
+        global ``batch`` under ``plan`` (default ``decode_plan(batch)``):
+        "state" [L, b, H_loc, P, N] float32 and the conv tails "conv_x"
+        [L, b, K-1, d_inner_loc], "conv_B" / "conv_C" [L, b, K-1, N] in
+        the compute dtype; b is the batch over ``cache_batch_axes``, the
+        heads and d_inner over col."""
         cfg = self.cfg
+        plan = plan or self.decode_plan(batch)
+        b = batch // self.mesh.axis_size(self.cache_batch_axes(plan))
         L, K = cfg.num_layers, cfg.ssm_conv
         return {
-            "state": ((L, batch, self.n_heads, cfg.ssm_head_dim, self.N),
+            "state": ((L, b, self.heads_loc, cfg.ssm_head_dim, self.N),
                       torch.float32),
-            "conv_x": ((L, batch, K - 1, self.d_inner), self.cdt),
-            "conv_B": ((L, batch, K - 1, self.N), self.cdt),
-            "conv_C": ((L, batch, K - 1, self.N), self.cdt),
+            "conv_x": ((L, b, K - 1, self.d_inner // self.ctx.cols),
+                       self.cdt),
+            "conv_B": ((L, b, K - 1, self.N), self.cdt),
+            "conv_C": ((L, b, K - 1, self.N), self.cdt),
         }
 
     # ------------------------------------------------------------- mixer
     @staticmethod
-    def _causal_conv(x, w):
+    def _causal_conv(x, w, halo=None):
         """Depthwise causal conv along seq, then silu.  x: [B, T, C];
-        w: [K, C]; the K-1 positions before the sequence are zeros."""
+        w: [K, C]; halo: the K-1 positions before this sequence shard
+        [B, K-1, C] (zeros before the sequence when None)."""
         K, T = w.shape[0], x.shape[1]
-        xp = torch.cat([x.new_zeros(x.shape[0], K - 1, x.shape[2]), x], 1)
+        if halo is None:
+            halo = x.new_zeros(x.shape[0], K - 1, x.shape[2])
+        xp = torch.cat([halo, x], 1)
         y = sum(xp[:, K - 1 - j: T + K - 1 - j, :] * w[K - 1 - j]
                 for j in range(K))
         return silu(y)
 
+    def _conv_halo(self, x, ops):
+        """The previous sequence shard's last K-1 rows of ``x`` (zeros on
+        the first), or None off the seq-sharded plan."""
+        if not ops.plan.seq_sharded:
+            return None
+        return col.halo_exchange_left(self.mesh, x, self.ctx.seq_shard_axes,
+                                      self.cfg.ssm_conv - 1, 1)
+
     def _mixer(self, p, x, ops):
-        """Prefill mixer.  x: [B, T, h] -> (out [B, T, h], final state
-        [B, H, P, N] float32, the pre-conv projections (xin, Bm, Cm) whose
-        last K-1 rows are the decode conv's cache)."""
+        """Prefill mixer.  x: [B, T_loc, h/q] -> (out [B, T_loc, h/q], this
+        shard's final state [B, H_loc, P, N] float32 (the sequence's once
+        the shards are chained), the pre-conv projections (xin, Bm, Cm)
+        whose last K-1 rows are the decode conv's cache)."""
         cfg = self.cfg
         B, T = x.shape[:2]
-        H, P_ = self.n_heads, cfg.ssm_head_dim
-        z = ops.linear(x, p["w_z"])                          # [B,T,di]
+        H, P_ = self.heads_loc, cfg.ssm_head_dim
+        z = ops.linear(x, p["w_z"])                          # [B,T,di/q]
         xin = ops.linear(x, p["w_x"])
         Bm = ops.linear_to_replicated(x, p["w_B"])           # [B,T,N]
         Cm = ops.linear_to_replicated(x, p["w_C"])
-        dt_raw = ops.linear(x, p["w_dt"])                    # [B,T,H]
+        dt_raw = ops.linear(x, p["w_dt"])                    # [B,T,H/q]
         dt = softplus(dt_raw.float() + p["dt_bias"])
-        xc = self._causal_conv(xin, p["conv_x"])
-        Bc = self._causal_conv(Bm, p["conv_B"])
-        Cc = self._causal_conv(Cm, p["conv_C"])
+        xc = self._causal_conv(xin, p["conv_x"], self._conv_halo(xin, ops))
+        Bc = self._causal_conv(Bm, p["conv_B"], self._conv_halo(Bm, ops))
+        Cc = self._causal_conv(Cm, p["conv_C"], self._conv_halo(Cm, ops))
         xh = xc.reshape(B, T, H, P_)
-        A = -torch.exp(p["A_log"].float())                   # [H]
-        log_a = dt * A                                       # [B,T,H]
+        A = -torch.exp(p["A_log"].float())                   # [H/q]
+        log_a = dt * A                                       # [B,T,H/q]
         x_dt = xh.float() * dt[..., None]
-        y, h_last = ssd_chunked(x_dt, log_a, Bc.float(), Cc.float(),
-                                cfg.ssm_chunk, use_pallas=self.run.use_pallas)
+        y, h_last, a_prod = ssd_chunked(x_dt, log_a, Bc.float(), Cc.float(),
+                                        cfg.ssm_chunk,
+                                        use_pallas=self.run.use_pallas)
+        axes = self.ctx.seq_shard_axes
+        if ops.plan.seq_sharded and self.mesh.axis_size(axes) > 1:
+            # chain the states across the sequence shards; the correction
+            # takes the post-conv C
+            h_in = col.distributed_linear_scan_carry(self.mesh, a_prod,
+                                                     h_last, axes)
+            y, h_last = chain_shard(y, h_last, a_prod, log_a, Cc, h_in)
         y = y + xh * p["Dskip"].to(x.dtype)[None, None, :, None]
         y = y.reshape(B, T, H * P_)
         y = ops.rmsnorm((y * silu(z)).to(x.dtype), p["ln_y"], cfg.norm_eps)
         return ops.linear(y, p["w_out"]), h_last, (xin, Bm, Cm)
 
     def _mixer_decode(self, p, x, cache_l, ops):
-        """Single-token state update.  x: [B, 1, h]; cache_l: this layer's
-        {"state", "conv_x", "conv_B", "conv_C"} -> (out [B, 1, h], the
-        layer's new cache)."""
+        """Single-token state update.  x: [B, 1, h/q]; cache_l: this
+        layer's {"state", "conv_x", "conv_B", "conv_C"} -> (out [B, 1,
+        h/q], the layer's new cache)."""
         cfg = self.cfg
         B = x.shape[0]
-        H, P_ = self.n_heads, cfg.ssm_head_dim
+        H, P_ = self.heads_loc, cfg.ssm_head_dim
         z = ops.linear(x, p["w_z"])[:, 0]
-        xin = ops.linear(x, p["w_x"])[:, 0]                  # [B,di]
+        xin = ops.linear(x, p["w_x"])[:, 0]                  # [B,di/q]
         Bm = ops.linear_to_replicated(x, p["w_B"])[:, 0]
         Cm = ops.linear_to_replicated(x, p["w_C"])[:, 0]
         dt_raw = ops.linear(x, p["w_dt"])[:, 0]
-        dt = softplus(dt_raw.float() + p["dt_bias"])         # [B,H]
+        dt = softplus(dt_raw.float() + p["dt_bias"])         # [B,H/q]
 
         def conv_step(cstate, new, w):
             xp = torch.cat([cstate, new[:, None, :]], dim=1)  # [B,K,C]
@@ -238,7 +333,7 @@ class MambaLM(nn.Module):
         Cc, ncC = conv_step(cache_l["conv_C"], Cm, p["conv_C"])
         xh = xin_c.reshape(B, H, P_).float()
         A = -torch.exp(p["A_log"].float())
-        a = torch.exp(dt * A)                                # [B,H]
+        a = torch.exp(dt * A)                                # [B,H/q]
         hnew = (a[..., None, None] * cache_l["state"]
                 + torch.einsum("bhp,bn->bhpn", xh * dt[..., None],
                                Bc.float()))
@@ -260,16 +355,28 @@ class MambaLM(nn.Module):
 
     @torch.no_grad()
     def prefill(self, tokens):
-        """Process prompts tokens [B, T] (T >= K-1, all of length T).
-        Returns (greedy next ids [B, 1] int32, cache as ``cache_abstract``:
-        the final SSM state of every layer and the last K-1 rows of each
-        layer's pre-conv x, B and C projections)."""
+        """Process prompts tokens [B, T] (host layout, the same on every
+        rank; all of length T, B over data, T over the sequence shards,
+        each of which needs at least K-1 tokens).  Returns (greedy next
+        ids [B, 1] int32, the same on every rank; this rank's block of the
+        cache, ``cache_abstract(B, plan)`` of the prefill plan: the final
+        SSM state of every layer and the last K-1 rows of each layer's
+        pre-conv x, B and C projections, the batch over data)."""
         K = self.cfg.ssm_conv
-        if tokens.shape[1] < K - 1:
-            raise ValueError(f"prefill needs at least K-1 = {K - 1} tokens "
-                             f"for the conv cache, got {tokens.shape[1]}")
         ops = make_ops(self.ctx, self.mesh, Plan.for_shape("prefill"))
-        x = ops.embed(tokens, self.embed).to(self.cdt)
+        axes = self.ctx.seq_shard_axes
+        shards = self.mesh.axis_size(axes)
+        B, T = tokens.shape
+        if T % shards or T // shards < K - 1:
+            raise ValueError(
+                f"prefill needs at least K-1 = {K - 1} tokens per sequence "
+                f"shard for the conv cache and its halo: {T} tokens over "
+                f"{shards} shards")
+        if B % self.ctx.data:
+            raise ValueError(f"prefill batch {B} does not split over data "
+                             f"= {self.ctx.data}")
+        x = ops.embed(ops.host_block(tokens, ops.tokens_in_axes()),
+                      self.embed).to(self.cdt)
         states, tails = [], {"conv_x": [], "conv_B": [], "conv_C": []}
         for blk in self.blocks:
             p = self._cast(blk)
@@ -279,17 +386,29 @@ class MambaLM(nn.Module):
             for name, t in zip(tails, pre):
                 tails[name].append(t[:, -(K - 1):, :].to(self.cdt))
         ids = self._sample(ops, ops_last_token(ops, x))
+        # only the last sequence shard holds the true final states and tails
         cache = {"state": torch.stack(states)}
         cache.update({k: torch.stack(v) for k, v in tails.items()})
+        cache = {k: col.last_shard_value(self.mesh, v, axes)
+                 for k, v in cache.items()}
         return ids[:, None], cache
 
     @torch.no_grad()
     def decode(self, cache, ids, pos=None):
-        """One greedy step for every sequence: ids [B, 1] -> (next ids
-        [B, 1] int32, the new cache).  ``pos`` is unused, as in the
-        reference (the state carries the position)."""
-        ops = make_ops(self.ctx, self.mesh, Plan.for_shape("decode"))
-        x = ops.embed(ids, self.embed).to(self.cdt)
+        """One greedy step for every sequence: ids [B, 1] (host layout, the
+        same on every rank) -> (next ids [B, 1] int32, the same on every
+        rank; the new cache).  ``cache`` is this rank's block under
+        ``decode_plan(B)`` (``runtime/serve_steps.py`` reshards a prefill
+        cache to it).  ``pos`` is unused, as in the reference (the state
+        carries the position)."""
+        ops = make_ops(self.ctx, self.mesh, self.decode_plan(ids.shape[0]))
+        want = self.cache_abstract(ids.shape[0], ops.plan)["state"][0]
+        if tuple(cache["state"].shape) != want:
+            raise ValueError(
+                f"decode: cache state {tuple(cache['state'].shape)} is not "
+                f"this rank's block {want} of the {ops.plan.kind} layout")
+        x = ops.embed(ops.host_block(ids, ops.tokens_in_axes()),
+                      self.embed).to(self.cdt)
         new = {k: [] for k in cache}
         for i, blk in enumerate(self.blocks):
             p = self._cast(blk)

@@ -103,7 +103,7 @@ def local_shape(shape, spec, mesh: Mesh):
                  for n, a in zip(shape, spec))
 
 
-class DenseBlock(nn.Module):
+class Block(nn.Module):
     """One layer's local params, named as the reference's ``blocks``."""
 
     def __init__(self, shapes: dict, dtype, device):
@@ -112,15 +112,61 @@ class DenseBlock(nn.Module):
             setattr(self, name, _param(shape, dtype, device))
 
 
+def alloc_local_params(model: nn.Module, cfg: ModelConfig,
+                       ctx: ParallelContext, mesh: Mesh | None, param_specs,
+                       dtype, device):
+    """Sets ``model.mesh`` (``mesh``, or a new one of ``ctx``; it must fit
+    ``ctx``'s layout), ``top_specs``, ``block_specs`` and ``v_pad``, and
+    registers uninitialised local blocks of the spec table
+    ``param_specs(cfg, ctx)`` (top-level params, then ``cfg.num_layers``
+    ``Block``s)."""
+    model.mesh = mesh if mesh is not None else Mesh(ctx)
+    if not model.mesh.fits(ctx):
+        raise ValueError(f"mesh {model.mesh.sizes} does not match the "
+                         f"context's layout")
+    model.top_specs, model.block_specs = param_specs(cfg, ctx)
+    model.v_pad = model.top_specs["head"][1][0]
+    for name, (_, shape, spec) in model.top_specs.items():
+        setattr(model, name, _param(local_shape(shape, spec, model.mesh),
+                                    dtype, device))
+    shapes = {n: local_shape(s, sp, model.mesh)
+              for n, (_, s, sp) in model.block_specs.items()}
+    model.blocks = nn.ModuleList(Block(shapes, dtype, device)
+                                 for _ in range(cfg.num_layers))
+
+
+@torch.no_grad()
+def draw_local_params(model: nn.Module, generator: torch.Generator, rule):
+    """Initialises the blocks ``alloc_local_params`` registered: for each
+    leaf in registration order ``rule(name, p)`` either sets the vector
+    ``p`` in place and returns None, or returns the std of a matrix's
+    N(0, std) draw.  Every rank draws every global matrix at its logical
+    shape in the same order, zero-pads it to the padded shape (vocab
+    rows, q heads) and keeps its block, so every layout of the mesh holds
+    blocks of the same global weights."""
+    items = [(n, p, model.top_specs[n])
+             for n, p in model.named_parameters(recurse=False)]
+    for blk in model.blocks:
+        items += [(n, p, model.block_specs[n])
+                  for n, p in blk.named_parameters()]
+    for name, p, (logical, padded, spec) in items:
+        std = rule(name, p)
+        if std is None:
+            continue
+        w = torch.empty(logical, dtype=p.dtype, device=p.device)
+        w.normal_(0.0, std, generator=generator)
+        if logical != padded:
+            w = torch.nn.functional.pad(w, [
+                x for lg, pd in zip(reversed(logical), reversed(padded))
+                for x in (0, pd - lg)])
+        p.copy_(local_block(w, spec, model.mesh.sizes, model.mesh.coords))
+
+
 class DenseLM(nn.Module):
     def __init__(self, cfg: ModelConfig, ctx: ParallelContext, run: RunConfig,
                  *, device: torch.device, generator: torch.Generator,
                  mesh: Mesh | None = None):
         super().__init__()
-        self.mesh = mesh if mesh is not None else Mesh(ctx)
-        if not self.mesh.fits(ctx):
-            raise ValueError(f"mesh {self.mesh.sizes} does not match the "
-                             f"context's layout")
         self.cfg, self.ctx, self.run = cfg, ctx, run
         self.device = device
         q = ctx.cols
@@ -132,45 +178,26 @@ class DenseLM(nn.Module):
                         else cfg.num_kv_heads)
         self.pdt = getattr(torch, run.param_dtype)
         self.cdt = getattr(torch, run.compute_dtype)
-        self.top_specs, self.block_specs = dense_param_specs(cfg, ctx)
-        self.v_pad = self.top_specs["head"][1][0]
-        for name, (_, shape, spec) in self.top_specs.items():
-            setattr(self, name, _param(local_shape(shape, spec, self.mesh),
-                                       self.pdt, device))
-        shapes = {n: local_shape(s, sp, self.mesh)
-                  for n, (_, s, sp) in self.block_specs.items()}
-        self.blocks = nn.ModuleList(
-            DenseBlock(shapes, self.pdt, device)
-            for _ in range(cfg.num_layers))
+        alloc_local_params(self, cfg, ctx, mesh, dense_param_specs, self.pdt,
+                           device)
         self.reset_parameters(generator)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
-        """The reference's init scales: weights N(0, 0.02) drawn at their
-        logical global shape and zero-padded (so every layout of the mesh
-        holds blocks of the same global weights), biases zero, norm scales
-        zero for rmsnorm's (1 + scale) and one for layernorm.  Every rank
-        draws every global leaf in the same order and keeps its block."""
+        """The reference's init scales: weights N(0, 0.02), biases zero,
+        norm scales zero for rmsnorm's (1 + scale) and one for layernorm
+        (``draw_local_params``)."""
         layernorm = self.cfg.norm == "layernorm"
-        items = [(n, p, self.top_specs[n])
-                 for n, p in self.named_parameters(recurse=False)]
-        for blk in self.blocks:
-            items += [(n, p, self.block_specs[n])
-                      for n, p in blk.named_parameters()]
-        for name, p, (logical, padded, spec) in items:
+
+        def rule(name, p):
             if name in ("ln1", "ln2", "ln_f"):
                 p.fill_(1.0 if layernorm else 0.0)
             elif p.ndim == 1:
                 p.zero_()
             else:
-                w = torch.empty(logical, dtype=p.dtype, device=p.device)
-                w.normal_(0.0, WINIT_SCALE, generator=generator)
-                if logical != padded:
-                    w = torch.nn.functional.pad(w, [
-                        x for lg, pd in zip(reversed(logical),
-                                            reversed(padded))
-                        for x in (0, pd - lg)])
-                p.copy_(local_block(w, spec, self.mesh.sizes, self.mesh.coords))
+                return WINIT_SCALE
+            return None
+
+        draw_local_params(self, generator, rule)
 
     # ------------------------------------------------------------ helpers
     def _w(self, p):

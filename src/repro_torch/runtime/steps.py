@@ -158,6 +158,11 @@ def build_train_step(model, shape, *, accum_steps: int = 1,
     "skipped"."""
     run = model.run
     mesh = model.mesh
+    if not hasattr(model, "loss"):
+        raise NotImplementedError(
+            f"{type(model).__name__} has no loss: ssm training is not "
+            f"ported yet (ROADMAP Queue A, item A3: ssm training; the "
+            f"reference has no backward for ssd_intra)")
     if shape.kind != "train":
         raise ValueError(f"build_train_step needs a train shape, got "
                          f"{shape.kind!r}")

@@ -2,19 +2,21 @@
 (counterpart of ``repro.testing.mdchecks``):
 
     torchrun --nproc-per-node 4 -m repro_torch.testing.mdchecks \\
-        collectives summa_exact serve_engine [--device cpu]
+        collectives summa_exact serve_engine ssm_serve [--device cpu]
 
 The mesh is [rows, cols, depth] = [2, 2, 1] at 4 ranks and [2, 2, 2] at 8
 (``--layout data,depth,rows,cols`` sets another); ``--mode megatron1d``
 runs the paper's 1-D baseline (``MegatronOps``) on cols = the world size,
 or on ``--layout data,1,1,cols``.  Checks:
 
-- ``collectives``: each collective of ``core/collectives.py`` against a
-  numpy model of the same ranks' inputs, the backward of each
-  differentiable one against a numpy model of its transpose, and the
+- ``collectives``: each collective of ``core/collectives.py`` (the
+  sequence-sharded prefill's halo exchange, state carry and last-shard
+  value among them) against a numpy model of the same ranks' inputs, the
+  backward of each differentiable one against a numpy model of its
+  transpose, and the
   token rows embed's reduce-scatter keeps against ``shard_tokens``; in
-  Megatron also the loss of the seq-sharded plan (Megatron-SP) against
-  the train plan's on the same tokens;
+  Megatron also the loss of the seq-sharded plan (Megatron-SP) against the
+  train plan's on the same tokens;
 - ``summa_exact``: ``tesseract_matmul`` on the fused schedule (kernel #1)
   and the ring (kernel #2) against the unsharded product, fp32 within
   1e-5 of the product's largest entry (and bf16 within 1e-2 on the card);
@@ -30,6 +32,17 @@ or on ``--layout data,1,1,cols``.  Checks:
   ``convert.flatten_params``), n_slots, block_size, num_blocks, max_seq_len,
   preempt) gives other cases, and ``--out FILE`` receives every case's ids
   (rank 0 writes); the loss runs across ranks and equals one rank's;
+- ``ssm_serve``: mamba2 on the mesh against the one-rank port on the
+  same global weights, per case (by default fused and ring with a batch
+  on the ``decode`` plan, and one on ``long_decode``, or ``decode_dp``
+  where data > 1; A_log slowed so the state crosses the sequence shards;
+  on the card full width at ``SSM_CARD_LAYERS`` layers): a prefill
+  through the static steps, the reshard of its cache and greedy decode
+  steps; ids identical, every cache leaf within 1e-4 of its max, the
+  case's decode plan, and on the card the SSD kernel once per layer of
+  the prefill and the schedule's SUMMA kernel in every projection.
+  ``--cases FILE`` (keys: name, schedule, arch, reduced, layers, params,
+  a_log, batch, prompt_len, steps, plan) and ``--out FILE`` as above;
 - ``train_parity``: training on the mesh against the one-rank port on the
   same global weights and batch, for each arch case (on the CPU reduced
   yi-6b, KV heads sharded, and reduced smollm-360m, KV replicated and q
@@ -67,12 +80,13 @@ from ..convert import (grads_to_numpy, load_params, params_from_jax,
 from ..core import collectives as col
 from ..core.api import ParallelContext
 from ..core.mesh import (AXES, GROUP_AXES, Mesh, init_distributed,
-                         shutdown_distributed)
+                         local_block, shutdown_distributed)
 from ..core.ops import Plan, make_ops
 from ..core.summa import _perm_shift, _perm_skew_a, _perm_skew_w
 from ..core.summa import tesseract_matmul
 from ..kernels import ops as kops
 from ..models.registry import build_model, get_arch, get_reduced
+from ..runtime.serve_steps import build_decode_step, build_prefill_step
 from ..runtime.steps import (build_train_step, init_opt_state, leaf_layouts,
                              sync_grads)
 
@@ -171,6 +185,24 @@ def check_collectives(mesh: Mesh, dev, args):
         full = np.concatenate([vals[r] for r in mem], axis=-1)
         same(got, full.argmax(-1).astype(np.int32),
              f"distributed_argmax {axes}")
+        # the sequence-sharded prefill's three: the previous member's last
+        # rows (zeros on the first), the recurrence h = a h + b entering
+        # this member, the last member's value
+        for dim in (0, 1):
+            tail = np.take(base[mem[i - 1]], range(x.shape[dim] - 2,
+                                                   x.shape[dim]), axis=dim)
+            same(col.halo_exchange_left(mesh, x, axes, 2, dim),
+                 tail if i else np.zeros_like(tail),
+                 f"halo_exchange_left dim={dim} {axes}")
+        a_all = (0.5 + base[:, 0, :3] ** 2).astype(np.float32)
+        h = np.zeros((3, 6), np.float32)
+        for j in range(i):
+            h = a_all[mem[j]][:, None] * h + base[mem[j], :3]
+        close(col.distributed_linear_scan_carry(
+            mesh, torch.from_numpy(a_all[mesh.rank]).to(dev), x[:3], axes),
+            h, f"distributed_linear_scan_carry {axes}")
+        same(col.last_shard_value(mesh, x, axes), base[mem[-1]],
+             f"last_shard_value {axes}")
     ctx = mesh.ctx
     megatron = ctx.mode == "megatron1d"
     # the ring's shifts: over (row, col) for the skews, one axis for steps
@@ -522,6 +554,181 @@ def check_serve_engine(mesh: Mesh, dev, args):
     log(mesh, f"PASS serve_engine ({len(cases)} cases on {mesh.size} ranks)")
 
 
+# ------------------------------------------------------------- ssm_serve
+
+# full width on the card, at a depth that fits one call
+SSM_CARD_LAYERS = 8
+SSM_CACHE_TOL = 1e-4     # each cache leaf, of the leaf's largest |value|
+
+
+def _ssm_cases(device, ctx):
+    """The default cases: two prompt lengths per sequence shard, one giving
+    each shard two whole chunks and one at which the chunk shrinks (the
+    reduced chunk 8 to Q 5, the full 256 to Q 250), on the fused and the
+    ring schedule with a batch that takes the ``decode`` plan, and a batch
+    of 1 (``long_decode``; ``decode_dp`` where data > 1, whose prefill
+    splits the batch over data).  A_log is -4 +- 1 (the seed's 0 decays
+    the state by ~0.5 a token, which leaves nothing of one shard's state
+    in the next one's outputs)."""
+    shards = ctx.depth * ctx.rows
+    bs = ctx.batch_shards
+    if device.type == "cuda":
+        common = dict(arch="mamba2-1.3b", layers=SSM_CARD_LAYERS, steps=8,
+                      a_log=-4.0)
+        lens = (512 * shards, 250 * shards)
+    else:
+        common = dict(arch="mamba2-1.3b", reduced=True, steps=4, a_log=-4.0)
+        lens = (16 * shards, 10 * shards)
+    cases = [dict(common, name="fused", schedule="fused", batch=2 * bs,
+                  prompt_len=lens[0], plan="decode"),
+             dict(common, name="ring", schedule="ring", batch=bs,
+                  prompt_len=lens[1], plan="decode")]
+    if ctx.data == 1:
+        cases.append(dict(common, name="long_decode", schedule="fused",
+                          batch=1, prompt_len=lens[1], plan="long_decode"))
+    elif ctx.data < bs:
+        cases.append(dict(common, name="decode_dp", schedule="fused",
+                          batch=ctx.data, prompt_len=lens[0],
+                          plan="decode_dp"))
+    return cases
+
+
+def ssm_tokens(case, vocab):
+    """The case's prompts [batch, prompt_len] (numpy, from a seed)."""
+    rng = np.random.default_rng((7, case["batch"], case["prompt_len"]))
+    return rng.integers(0, vocab, (case["batch"], case["prompt_len"]))
+
+
+def _ssm_models(mesh, dev, case):
+    """(the model on the mesh, the one-rank model) on the same global
+    weights (the case's reference tree, or the seed's), fp32, the SSD
+    kernel's wrapper on."""
+    cfg = (get_reduced(case["arch"]) if case.get("reduced")
+           else get_arch(case["arch"])).model
+    if "layers" in case:
+        cfg = dataclasses.replace(cfg, num_layers=case["layers"])
+    run = RunConfig(param_dtype="float32", compute_dtype="float32",
+                    use_pallas=True)
+    ctx = mesh.ctx.replace(matmul_schedule=case["schedule"])
+    model = build_model(cfg, ctx, run, device=dev, seed=0, mesh=mesh)
+    one = build_model(cfg, ParallelContext(), run, device=dev, seed=0)
+    if "params" in case:
+        tree = load_params(case["params"])
+        params_from_jax(tree, one)
+        params_from_jax(shard_params(tree, cfg, ctx, mesh.coords), model)
+    if "a_log" in case:
+        # slow decay (A = -exp(A_log), spread over the heads), so that the
+        # state entering a sequence shard carries into its outputs
+        glob = torch.linspace(case["a_log"] - 1.0, case["a_log"] + 1.0,
+                              one.n_heads)
+        with torch.no_grad():
+            for m in (model, one):
+                vals = local_block(glob, (("col",),), m.mesh.sizes,
+                                   m.mesh.coords)
+                for blk in m.blocks:
+                    blk.A_log.copy_(vals)
+    return model, one
+
+
+# the cache leaves' dim over col: the state's heads, conv_x's channels
+_HEAD_DIM = {"state": 2, "conv_x": 3}
+
+
+def _cache_err(model, got, want, batch_axes):
+    """{leaf: max |block of got - its block of want| / max |want|}, the
+    maximum over the mesh: ``want`` is the one-rank cache, whose block on
+    this rank is its batch rows over ``batch_axes`` and, for the state and
+    conv_x, its heads / channels over col."""
+    out = {}
+    for name, full in want.items():
+        spec = [(), batch_axes] + [()] * (full.ndim - 2)
+        if name in _HEAD_DIM:
+            spec[_HEAD_DIM[name]] = ("col",)
+        blk = local_block(full, spec, model.mesh.sizes, model.mesh.coords)
+        ok = tuple(blk.shape) == tuple(got[name].shape)
+        err = ((got[name].float() - blk.float()).abs().max() if ok
+               else torch.tensor(float("inf"), device=full.device))
+        err = float(col.pmax(model.mesh, err.reshape(1), AXES)[0])
+        out[name] = err / max(float(full.float().abs().max()), 1e-30)
+    return out
+
+
+def check_ssm_serve(mesh: Mesh, dev, args):
+    """The ssm family served on the mesh against one rank: per case a
+    prefill through the static steps, the reshard to the decode plan's
+    cache layout and ``steps`` greedy decode steps; the ids of every step
+    identical to the one-rank model's, every cache leaf (after the prefill
+    and after the last step) within ``SSM_CACHE_TOL`` of its max, the
+    decode plan the case names, and on the card the SSD kernel once per
+    layer of the prefill and the schedule's SUMMA kernel in every
+    projection."""
+    cases = _ssm_cases(dev, mesh.ctx)
+    if args.cases:
+        with open(args.cases) as f:
+            cases = json.load(f)
+    out = {}
+    for case in cases:
+        t0 = time.perf_counter()
+        model, one = _ssm_models(mesh, dev, case)
+        B, T, steps = case["batch"], case["prompt_len"], case["steps"]
+        tokens = torch.from_numpy(ssm_tokens(case, model.cfg.vocab_size)).to(
+            dev)
+        pre = build_prefill_step(model, ShapeSpec("p", T, B, "prefill"))
+        dec = build_decode_step(model, ShapeSpec("d", T, B, "decode"))
+        kops.reset_launches()
+        ids, pcache = pre.fn(tokens)
+        cache = dec.from_prefill(pcache)
+        got = [ids]
+        for t in range(steps):
+            ids, cache = dec.fn(cache, ids, T + t)
+            got.append(ids)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = dict(kops.LAUNCHES)
+        ids1, pcache1 = one.prefill(tokens)
+        cache1 = pcache1
+        want = [ids1]
+        for t in range(steps):
+            ids1, cache1 = one.decode(cache1, ids1, T + t)
+            want.append(ids1)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        _agree(mesh, dev, same, f"ssm {case['name']}: mesh ids differ from "
+                                f"one rank\n{got}\n{want}")
+        _agree(mesh, dev, dec.plan.kind == case.get("plan", dec.plan.kind),
+               f"ssm {case['name']}: decode plan {dec.plan.kind}, want "
+               f"{case.get('plan')}")
+        errs = _cache_err(model, pcache, pcache1, ("data",))
+        errs.update({f"{k} after {steps} steps": v for k, v in _cache_err(
+            model, cache, cache1, model.cache_batch_axes(dec.plan)).items()})
+        bad = {k: v for k, v in errs.items() if not v <= SSM_CACHE_TOL}
+        _agree(mesh, dev, not bad, f"ssm {case['name']}: cache leaves over "
+                                   f"{SSM_CACHE_TOL} of max: {bad}")
+        if dev.type == "cuda":
+            L, fwd = model.cfg.num_layers, 1 + steps
+            ring = case["schedule"] == "ring"
+            want_l = {"ssd_intra": L,
+                      "tesseract_mm": 0 if ring else 4 * L * fwd,
+                      "tesseract_mm_stream": (mesh.sizes["col"] * 4 * L * fwd
+                                              if ring else 0)}
+            got_l = {k: launches[k] for k in want_l}
+            _agree(mesh, dev, got_l == want_l, f"ssm {case['name']}: "
+                   f"launches {got_l}, want {want_l}")
+        worst = max(errs.values())
+        out[case["name"]] = dict(ids=[g[:, 0].tolist() for g in got],
+                                 plan=dec.plan.kind, cache_rel_err=worst,
+                                 launches=launches)
+        log(mesh, f"  ssm_serve {case['name']}: B={B} T={T} "
+                  f"{case['schedule']}, decode plan {dec.plan.kind}: ids "
+                  f"identical to one rank over {steps} steps; cache leaves "
+                  f"within {worst:.3g} of max; launches {launches}; "
+                  f"{time.perf_counter() - t0:.1f} s")
+        del model, one, pcache, cache, pcache1, cache1
+    if args.out and mesh.rank == 0:
+        with open(args.out, "w") as f:
+            json.dump(out, f)
+    log(mesh, f"PASS ssm_serve ({len(cases)} cases on {mesh.size} ranks)")
+
+
 # ---------------------------------------------------------- train_parity
 
 # loss: absolute; grad, param: of each leaf's largest |value|; zero1: ZeRO-1
@@ -772,6 +979,7 @@ def _check_zero_state(mesh, dev, model, opt, what):
 
 CHECKS = {"collectives": check_collectives, "summa_exact": check_summa_exact,
           "serve_engine": check_serve_engine,
+          "ssm_serve": check_ssm_serve,
           "train_parity": check_train_parity}
 
 
@@ -784,8 +992,10 @@ def main(argv=None):
     ap.add_argument("--mode", default="tesseract", choices=MODES,
                     help="op set: megatron1d is the 1-D baseline (rows = "
                          "depth = 1; default layout 1,1,1,world)")
-    ap.add_argument("--cases", default="", help="JSON list of serve cases")
-    ap.add_argument("--out", default="", help="serve_engine ids (JSON)")
+    ap.add_argument("--cases", default="",
+                    help="JSON list of serve_engine or ssm_serve cases")
+    ap.add_argument("--out", default="",
+                    help="serve_engine or ssm_serve ids (JSON)")
     args = ap.parse_args(argv)
     dev = init_distributed(args.device)
     if dev.type == "cuda":

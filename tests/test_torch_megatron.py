@@ -298,15 +298,17 @@ def test_megatron_leaf_table(zero1):
 
 
 def test_megatron_refusals():
-    """Megatron has no [q, q] grid to ring over; the gspmd op set and the
-    ssm family on Megatron still refuse, naming their ROADMAP items."""
+    """Megatron has no [q, q] grid to ring over; the gspmd op set still
+    refuses, naming its ROADMAP item, and the ssm family on Megatron with
+    the reference's reason."""
     with pytest.raises(ValueError, match="megatron1d has no"):
         ParallelContext(mode="megatron1d", cols=4, matmul_schedule="ring")
     run = RunConfig(param_dtype="float32")
     with pytest.raises(NotImplementedError, match="item A3"):
         build_model(port_reduced("yi-6b").model, ParallelContext(
             mode="gspmd"), run, device="cpu")
-    with pytest.raises(NotImplementedError, match="item A1"):
+    with pytest.raises(NotImplementedError,
+                       match="ssm arch runs in tesseract modes"):
         build_model(port_reduced("mamba2-1.3b").model, ParallelContext(
             mode="megatron1d"), run, device="cpu")
 

@@ -93,14 +93,15 @@ def test_entry_points_default_to_cuda():
 
 def test_multi_device_layouts_raise():
     """Layouts the port does not run raise naming their ROADMAP item: a seq
-    axis, the gspmd op set, and the ssm family across ranks; a mesh of
-    several ranks without torch.distributed asks for torchrun."""
+    axis and the gspmd op set; a mesh of several ranks without
+    torch.distributed asks for torchrun, for the dense and the ssm family
+    alike."""
     cfg = get_reduced("yi-6b").model
     run = RunConfig(param_dtype="float32", compute_dtype="float32")
     for ctx in (ParallelContext(seq=2), ParallelContext(mode="gspmd")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(cfg, ctx, run, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="torchrun"):
         build_model(get_reduced("mamba2-1.3b").model,
                     ParallelContext(rows=2, cols=2), run, device="cpu")
     with pytest.raises(ValueError, match="torchrun"):

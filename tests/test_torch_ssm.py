@@ -91,19 +91,21 @@ def test_ssd_intra_plain_matches_pallas_and_ref(Q, steep):
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_ssd_chunked_matches_reference(use_pallas):
     """(b) the chunked scan at T = 40, chunk 16 (Q shrinks to 10, four
-    chunks): y and the final state."""
+    chunks): y, the final state and the sequence's decay product (which
+    chains a sequence shard to the next)."""
     rng = np.random.default_rng(11)
     Bsz, T_, H, P, N = 2, 40, 4, 16, 8
     x = rng.standard_normal((Bsz, T_, H, P)).astype(np.float32)
     la = (-0.3 * rng.uniform(0.5, 1.5, (Bsz, T_, H))).astype(np.float32)
     Bm = rng.standard_normal((Bsz, T_, N)).astype(np.float32)
     Cm = rng.standard_normal((Bsz, T_, N)).astype(np.float32)
-    y, h = ssd_chunked(*map(torch.from_numpy, (x, la, Bm, Cm)), 16,
-                       use_pallas=use_pallas)
-    wy, wh, _ = ref_ssd_chunked(*map(jnp.asarray, (x, la, Bm, Cm)), 16,
-                                use_pallas=use_pallas)
+    y, h, a = ssd_chunked(*map(torch.from_numpy, (x, la, Bm, Cm)), 16,
+                          use_pallas=use_pallas)
+    wy, wh, wa = ref_ssd_chunked(*map(jnp.asarray, (x, la, Bm, Cm)), 16,
+                                 use_pallas=use_pallas)
     _close(y, wy, 1e-5, "y")
     _close(h, wh, 1e-5, "h_last")
+    _close(a, wa, 1e-5, "a_prod")
 
 
 def _ref_serve(arch, compute_dtype, tokens, perturb=None):

@@ -15,7 +15,7 @@ The multi-rank parity itself runs in the torchrun spawns of
     each leaf's gradient is psum'd over, replicated and under ZeRO-1;
 (d) at one rank ZeRO-1 (every slice the whole leaf) runs the replicated
     optimizer's update bit for bit;
-(e) the refusals that stay name ROADMAP A3 (or A1 for the ssm family).
+(e) the refusals that stay name ROADMAP A3 (ssm training among them).
 """
 import dataclasses
 import itertools
@@ -180,6 +180,7 @@ def test_unported_gradient_formats_refuse():
         RunConfig(grad_compression="bf16")
     with pytest.raises(NotImplementedError, match="item A3"):
         _tiny(ParallelContext(dgrad_rs_bf16=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A"):
-        build_model(get_reduced("mamba2-1.3b").model,
-                    ParallelContext(data=2), RunConfig(), device="cpu")
+    ssm = build_model(get_reduced("mamba2-1.3b").model, ParallelContext(),
+                      RunConfig(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item A3: ssm training"):
+        build_train_step(ssm, ShapeSpec("t", 16, 2, "train"))
