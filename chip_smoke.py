@@ -78,13 +78,21 @@ non-zero and prints no result:
    ln(vocab), no skipped step, 32 launches per step of each flash kernel
    and 7 x 32 of tesseract_mm; step time, tokens/s, peak memory, model
    FLOPs share and a profile;
-12. ssm serve: mamba2-1.3b at full width and depth in bf16, one prefill of
+12. train restart: the same run from the same weights through the
+   fault-tolerant path (checkpoints every 3 steps into a temporary
+   directory, a NaN at step 4, the step-5 checkpoint damaged, a crash
+   before step 7): each step's loss equal to phase 11's bit for bit, one
+   restart, one checkpoint fallback and one skipped step, and the
+   kernels' launches exact for the 15 step executions (launch counters
+   zeroed just before); the free disk space, the checkpoint's size, the
+   save times (host copy, write) and the verify-and-restore time;
+13. ssm serve: mamba2-1.3b at full width and depth in bf16, one prefill of
    8 prompts x 2048 tokens (Q = 256, nc = 8) and 32 greedy decode steps
    with the launch counters zeroed just before: exactly 48 SSD launches
    and 4 x 48 tesseract_mm launches per prefill and decode step, in-vocab
    ids, finite states; prefill time, decode step p50/p99, tokens/s, peak
    memory and a profiled prefill;
-13. timings at the serve and train shapes: each kernel checked once more
+14. timings at the serve and train shapes: each kernel checked once more
    against its plain version on the exact inputs it times (flash at the
    2048 bucket and at the train shape, paged with a 256-entry table over
    the 2048-block pool, the backward passes and the forward at the train
@@ -100,7 +108,7 @@ non-zero and prints no result:
    from the plain version's; and the host time of one projection (the SUMMA
    wrapper against torch.matmul, and on the wgmma route, whose launch
    encodes two TMA descriptors);
-14. the last line: {"ok": true, "device": {...}}.
+15. the last line: {"ok": true, "device": {...}}.
 
 The four-card mesh is not a phase (this script needs one card): it runs
 under torchrun, ``python -m repro_torch.testing.mdchecks`` and
@@ -130,6 +138,11 @@ SERVE_PROMPTS = (128, 512, 1000, 2000)
 SERVE_REQUESTS, SERVE_NEW = 16, 32
 TRAIN_ARCH = "smollm-360m"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 2048, 8, 10
+# the restart phase's faults: a NaN at step 4, the step-5 checkpoint
+# damaged, a crash before step 7 (restores step 2, replays 3-6)
+RESTART_PLAN = "train.grads@4:nan;ckpt.write@5:corrupt(0,bit_flip)"
+RESTART_EVERY, RESTART_CRASH = 3, 7
+RESTART_EXECS = TRAIN_STEPS + 1 + 4
 H100_TF32_FLOPS = 495e12     # dense TF32 tensor-core peak (fp32 inputs)
 H100_FP32_FLOPS = 67e12      # fp32 peak outside the tensor cores
 SSM_ARCH = "mamba2-1.3b"
@@ -854,7 +867,92 @@ def phase_train():
     profile_train_step(model, shape)
     del model
     torch.cuda.empty_cache()
-    return launches
+    return launches, res.losses
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in pathlib.Path(path).rglob("*")
+               if f.is_file())
+
+
+def phase_train_restart(want_losses):
+    """The fault-tolerant train path: phase_train's run again (the same
+    seed-0 weights, stream and shape), with a checkpoint every
+    RESTART_EVERY steps into a temporary directory and RESTART_PLAN's
+    faults: a NaN at step 4 (one retry), the step-5 checkpoint damaged
+    after its write, and a crash before step 7, which falls back across
+    the damaged step-5 checkpoint to step 2 and replays steps 3-6.  Each
+    step's loss must equal phase_train's bit for bit, and every kernel of
+    the path must have launched its count per step execution (15 of
+    them: 10 steps, the retry and 4 replayed)."""
+    import shutil
+    import tempfile
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime.faults import FaultInjector, FaultPlan
+    from repro_torch.runtime.train_loop import train
+    model = _model(TRAIN_ARCH, "float32", "bfloat16", "auto")
+    L = model.cfg.num_layers
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    ckpt = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    usage = shutil.disk_usage(ckpt)
+    log(f"train restart: checkpoints in {ckpt}: {usage.free / 2**30:.1f} "
+        f"GiB free of {usage.total / 2**30:.1f} GiB")
+    fired = []
+
+    def crash(step):
+        if step == RESTART_CRASH and not fired:
+            fired.append(step)
+            raise RuntimeError(f"injected crash before step {step}")
+
+    try:
+        torch.cuda.synchronize()
+        kops.reset_launches()
+        res = train(model, shape, steps=TRAIN_STEPS, seed=0, log_every=1,
+                    ckpt_dir=ckpt, ckpt_every=RESTART_EVERY,
+                    fault_hook=crash,
+                    injector=FaultInjector(FaultPlan.parse(RESTART_PLAN)))
+        torch.cuda.synchronize()
+        launches = dict(kops.LAUNCHES)
+        size = _dir_bytes(pathlib.Path(ckpt) / f"step_{TRAIN_STEPS - 1:08d}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    got = dict(zip(res.loss_steps, res.losses))
+    execs = len(res.losses) + res.nan_skips
+    log(f"train restart: {TRAIN_ARCH} fp32 params bf16 compute, plan "
+        f"{RESTART_PLAN!r} + a crash before step {RESTART_CRASH}, "
+        f"checkpoints every {RESTART_EVERY} steps: steps run "
+        f"{res.loss_steps} (+{res.nan_skips} skipped), restarts "
+        f"{res.restarts}, ckpt fallbacks {res.ckpt_fallbacks}, nan skips "
+        f"{res.nan_skips}, fault log {res.fault_log}")
+    same = [got.get(s) == want_losses[s] for s in range(TRAIN_STEPS)]
+    log(f"train restart: losses per step equal phase_train's bit for bit: "
+        f"{same}; largest |diff| "
+        f"{max(abs(got[s] - want_losses[s]) for s in got):.3g}")
+    secs = res.ckpt_seconds
+    log(f"train restart: checkpoint {size / 2**30:.3f} GiB on disk "
+        f"({size} bytes: fp32 params, m and v); save: host copy s "
+        f"{[round(t, 3) for t in secs['host_copy']]}, write s (on its "
+        f"thread) {[round(t, 3) for t in secs['write']]}; verify and "
+        f"restore s {[round(t, 3) for t in secs['restore']]}; step ms "
+        f"{[round(t * 1e3, 1) for t in res.step_times]}")
+    log(f"train restart launches: {launches}")
+    check(sorted(got) == list(range(TRAIN_STEPS)) and all(same),
+          f"train restart losses {got} != phase_train's {want_losses}")
+    check((res.restarts, res.ckpt_fallbacks, res.nan_skips) == (1, 1, 1),
+          f"train restart: restarts {res.restarts}, fallbacks "
+          f"{res.ckpt_fallbacks}, nan skips {res.nan_skips}, want 1 each")
+    check(execs == RESTART_EXECS, f"train restart ran {execs} step "
+                                  f"executions, want {RESTART_EXECS}")
+    want = L * RESTART_EXECS
+    check(launches["flash_fwd"] == launches["flash_dq"]
+          == launches["flash_dkv"] == want
+          and launches["tesseract_mm"] == DENSE_MM * want
+          and launches["tesseract_mm_stream"] == 0,
+          f"train restart launches {launches}: want {want} of each flash "
+          f"kernel and {DENSE_MM} x {want} of tesseract_mm")
+    del model
+    torch.cuda.empty_cache()
 
 
 def profile_train_step(model, shape):
@@ -1866,7 +1964,8 @@ def main():
         phase(phase_ssm_parity)
         phase(phase_ssd_shards, worst)
         launches, counts = phase(phase_serve)
-        train_launches = phase(phase_train)
+        train_launches, train_losses = phase(phase_train)
+        phase(phase_train_restart, train_losses)
         ssm_launches = phase(phase_ssm_serve)
         # the backward timings check the forward at the train shape too,
         # so they run before the forward's row is written

@@ -156,9 +156,13 @@ class RunConfig:
     # Gradient-accumulation microbatches per optimizer step (train loop
     # default).
     accum_steps: int = 1
-    # Deterministic fault injection plan of the reference ("" = none); not
-    # ported yet, so a non-empty plan is refused.
+    # Deterministic fault injection plan (runtime/faults.py DSL, "" =
+    # none), validated here; the train loop fires its train.* and ckpt.*
+    # sites, and the serve engine refuses a serve.* site (ROADMAP Queue A,
+    # item A3).  The whole fault sequence is a pure function of
+    # (fault_seed, site, kind, step).
     fault_plan: str = ""
+    fault_seed: int = 0
     # Non-finite update skips tolerated per step before the train loop
     # backs off loss_scale or raises (the reference's recovery ladder).
     nan_skip_limit: int = 2
@@ -167,8 +171,9 @@ class RunConfig:
     # same switch.
     zero1: bool = False
     zero_stage: int = 0
-    # Wire format of the gradient reductions: "none" only; the reference's
-    # "bf16" compression is not ported yet.
+    # Wire format of the gradient reductions of the data and depth axes
+    # (the step's gradient sync and ZeRO-1's reduce-scatter): "none"
+    # (the gradients' dtype) or "bf16" (runtime/steps.py).
     grad_compression: str = "none"
 
     def __post_init__(self):
@@ -199,20 +204,12 @@ class RunConfig:
         if self.zero_stage not in (0, 1):
             raise ValueError(f"zero_stage must be 0 or 1, "
                              f"got {self.zero_stage}")
-        if self.grad_compression == "bf16":
-            raise NotImplementedError(
-                "grad_compression='bf16' is not supported by repro_torch "
-                "yet (ROADMAP Queue A, item A3: compressed gradient wire "
-                "formats)")
-        if self.grad_compression != "none":
+        if self.grad_compression not in ("none", "bf16"):
             raise ValueError(f"grad_compression must be 'none' or 'bf16', "
                              f"got {self.grad_compression!r}")
         if self.fault_plan:
-            # fault injection (runtime/faults.py of the JAX package) is not
-            # ported yet: refuse a plan rather than silently ignore it
-            raise NotImplementedError(
-                "fault_plan is not supported by repro_torch yet "
-                "(ROADMAP Queue A, item A3: fault injection)")
+            from ..runtime.faults import FaultPlan
+            FaultPlan.parse(self.fault_plan)   # validate sites and kinds
 
     @property
     def zero_enabled(self) -> bool:

@@ -12,8 +12,7 @@ Tesseract (the paper) arranges the tensor-parallel group as a [q, q, d] grid
 The PyTorch port's own copy of ``repro.core.api``.  The port runs the
 ``tesseract`` and ``summa2d`` layouts over any ``data``, ``depth`` and
 ``rows == cols``, and ``megatron1d`` over any ``data`` and ``cols``
-(``require_supported`` refuses the rest: a ``seq`` axis, ``gspmd`` and the
-bf16 dW reduce-scatter).
+(``require_supported`` refuses the rest: a ``seq`` axis and ``gspmd``).
 """
 from __future__ import annotations
 
@@ -65,8 +64,9 @@ class ParallelContext:
     # matmul's backward; False defers it to the step's one psum per leaf
     # (runtime/steps.py::sync_grads).
     reduce_dgrad_in_op: bool = True
-    # bf16 wire format of the dW reduce-scatter: not ported
-    # (require_supported refuses it).
+    # bf16 wire format of the SUMMA backward's dW reductions (the
+    # reduce-scatter over row, the ring's adds and the in-op psum), on
+    # both schedules (core/summa.py).
     dgrad_rs_bf16: bool = False
 
     # axis names (fixed; kept here so ops never hard-code strings)
@@ -150,8 +150,8 @@ def require_supported(ctx: ParallelContext) -> None:
     It runs ``tesseract`` and ``summa2d`` at any ``data``, ``depth`` and
     ``rows == cols``, and ``megatron1d`` (rows = depth = 1, the fused
     schedule: ``ParallelContext`` checks both) at any ``data`` and
-    ``cols``; the ``seq`` axis (ring/striped attention), the ``gspmd`` op
-    set and the bf16 dW reduce-scatter are ROADMAP Queue A, item A3."""
+    ``cols``; the ``seq`` axis (ring/striped attention) and the ``gspmd``
+    op set are ROADMAP Queue A, item A3."""
     if ctx.mode not in ("tesseract", "summa2d", "megatron1d"):
         raise NotImplementedError(
             f"mode={ctx.mode!r} is not ported yet (ROADMAP Queue A, item A3: "
@@ -160,8 +160,3 @@ def require_supported(ctx: ParallelContext) -> None:
         raise NotImplementedError(
             f"seq={ctx.seq} is not ported yet (ROADMAP Queue A, item A3: "
             f"ring/striped attention over a seq axis)")
-    if ctx.dgrad_rs_bf16:
-        raise NotImplementedError(
-            "dgrad_rs_bf16=True (the bf16 dW reduce-scatter) is not ported "
-            "yet (ROADMAP Queue A, item A3: compressed gradient wire "
-            "formats)")

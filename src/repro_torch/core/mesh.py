@@ -14,7 +14,10 @@ At one rank a ``Mesh`` needs no ``torch.distributed``: every group has size
 1 and every collective of ``core/collectives.py`` is the identity.  Across
 ranks ``init_distributed`` starts the process group from ``torchrun``'s
 environment first (NCCL on the card, gloo on the CPU).  Creating groups is
-collective, so every rank builds every ``Mesh`` in the same order.
+collective, so every rank builds every ``Mesh`` in the same order.  A mesh
+may be smaller than the world (the layout of an elastic re-plan,
+``runtime/elastic.py``): it spans ranks 0 .. size - 1, and the other ranks,
+which build it as well, find ``mesh.active`` False and use none of it.
 """
 from __future__ import annotations
 
@@ -95,16 +98,19 @@ class Mesh:
         self.sizes = {"data": ctx.data, "depth": ctx.depth, "row": ctx.rows,
                       "col": ctx.cols}
         self.size = ctx.size
-        if self.size == 1:
-            self.rank = 0
-        else:
-            if not dist.is_initialized() or dist.get_world_size() != self.size:
-                have = dist.get_world_size() if dist.is_initialized() else 1
-                raise ValueError(
-                    f"{ctx.data}x{ctx.depth}x{ctx.rows}x{ctx.cols} mesh needs "
-                    f"{self.size} ranks under torch.distributed, have {have} "
-                    f"(start with torchrun --nproc-per-node {self.size})")
-            self.rank = dist.get_rank()
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world < self.size:
+            raise ValueError(
+                f"{ctx.data}x{ctx.depth}x{ctx.rows}x{ctx.cols} mesh needs "
+                f"{self.size} ranks under torch.distributed, have {world} "
+                f"(start with torchrun --nproc-per-node {self.size})")
+        self.world = world
+        rank = dist.get_rank() if world > 1 else 0
+        # a mesh smaller than the world (an elastic re-plan onto the
+        # survivors) spans ranks 0 .. size - 1; the others build it too
+        # (creating groups is collective) but take no part in it
+        self.active = rank < self.size
+        self.rank = rank if self.active else 0
         shape = tuple(self.sizes[a] for a in AXES)
         self.coords = dict(zip(AXES, (int(c) for c in
                                       np.unravel_index(self.rank, shape))))
@@ -146,7 +152,10 @@ class Mesh:
         coordinates fixed) and keep this rank's.  Collective: every rank
         creates every group, in the same order."""
         if len(axes) == len(AXES):
-            return dist.group.WORLD
+            if self.world == self.size:
+                return dist.group.WORLD
+            group = dist.new_group(list(range(self.size)))
+            return group if self.active else None
         rest = [a for a in AXES if a not in axes]
         parts = []
         for fixed in itertools.product(*(range(self.sizes[a]) for a in rest)):
@@ -156,7 +165,7 @@ class Mesh:
                 for free in itertools.product(
                     *(range(self.sizes[a]) for a in axes))))
         mine, _ = dist.new_subgroups_by_enumeration(parts)
-        return mine
+        return mine if self.active else None
 
 
 def _axes(axes) -> tuple:

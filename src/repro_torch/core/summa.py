@@ -44,11 +44,15 @@ streams on the col ring; each ends with one shift and the unskew.
 
 With ``reduce_dgrad_in_op`` dW is then psum'd over (data, depth) inside the
 op (the paper's per-op all-reduce; else the step's ``sync_grads`` does it
-once per leaf).  The reference forms these products in ``_einsum``, outside
-any Pallas kernel, and their layouts (W^T, A^T) are not kernel #1's, so
-``torch.mm`` forms them at the reference's precision (``mm_f32``): operands
-in the compute dtype summed in fp32, dA rounded once to dC's dtype, dW kept
-in fp32 until its reductions end.
+once per leaf).  With ``dgrad_rs_bf16`` the dW pieces are rounded to bf16
+and every dW reduction (the reduce-scatter or the ring's adds, and the
+in-op psum) runs in bf16, on both schedules, as the reference's
+``rs_dtype``; dA is unchanged.  The reference forms these products in
+``_einsum``, outside any Pallas kernel, and their layouts (W^T, A^T) are
+not kernel #1's, so ``torch.mm`` forms them at the reference's precision
+(``mm_f32``): operands in the compute dtype summed in fp32, dA rounded
+once to dC's dtype, dW kept in fp32 (or bf16, above) until its
+reductions end.
 """
 from __future__ import annotations
 
@@ -178,12 +182,19 @@ def _fused_bwd(ctx: ParallelContext, mesh: Mesh, ar, wr, dc):
     # col group keeps the sum of the dA_t
     da = torch.stack([mm_f32(dc, wt.t()) for wt in wg]).to(dc.dtype)
     da = col.psum_scatter_dim(mesh, da, "col", 0)[0]
-    # dW_t = A_t^T dC, in fp32 through the reduce-scatter over row
-    dw = torch.stack([mm_f32(at.t(), dc) for at in ag])
+    # dW_t = A_t^T dC, in fp32 (or bf16, dgrad_rs_bf16) through the
+    # reduce-scatter over row
+    dw = torch.stack([mm_f32(at.t(), dc) for at in ag]).to(_rs_dtype(ctx))
     return da, col.psum_scatter_dim(mesh, dw, "row", 0)[0]
 
 
-def _ring_bwd(mesh: Mesh, a2, w, dc):
+def _rs_dtype(ctx: ParallelContext):
+    """The dW reduction's wire dtype: bf16 with ``dgrad_rs_bf16``, else
+    fp32 (the reference's ``rs_dtype``)."""
+    return torch.bfloat16 if ctx.dgrad_rs_bf16 else torch.float32
+
+
+def _ring_bwd(mesh: Mesh, a2, w, dc, rs_dtype):
     """dA and dW on the forward's rings, in two passes (the reference's
     ``_ring_bwd``).  Each step's piece is added to the accumulator that
     arrives from the next rank, so each rank ends with its own block after
@@ -216,9 +227,10 @@ def _ring_bwd(mesh: Mesh, a2, w, dc):
     da = ring(col.ppermute(mesh, w, _RC, _perm_skew_w(q)), "row", "col",
               lambda wt: mm_f32(dc, wt.t()).to(dc.dtype))
     da = col.ppermute(mesh, da, _RC, _perm_unskew_a(q))
-    # pass 2: A streams on the col ring, fp32 dW pieces ride the row ring
+    # pass 2: A streams on the col ring, dW pieces (fp32, or bf16 with
+    # dgrad_rs_bf16, summed in that dtype) ride the row ring
     dw = ring(col.ppermute(mesh, a2, _RC, _perm_skew_a(q)), "col", "row",
-              lambda at: mm_f32(at.t(), dc))
+              lambda at: mm_f32(at.t(), dc).to(rs_dtype))
     return da, col.ppermute(mesh, dw, _RC, _perm_unskew_w(q))
 
 
@@ -240,11 +252,13 @@ class _TesseractMatmul(torch.autograd.Function):
         ar, wr = fctx.saved_tensors
         ctx, mesh = fctx.ctx, fctx.mesh
         if mesh.size == 1:
-            return None, None, torch.matmul(dc, wr.t()), torch.matmul(ar.t(),
-                                                                      dc)
+            dw = torch.matmul(ar.t(), dc)
+            if ctx.dgrad_rs_bf16:    # the reference rounds it at one rank too
+                dw = dw.to(torch.bfloat16).to(wr.dtype)
+            return None, None, torch.matmul(dc, wr.t()), dw
         dc = dc.contiguous()
         if effective_schedule(ctx, dc.shape[0]) == "ring":
-            da, dw = _ring_bwd(mesh, ar, wr, dc)
+            da, dw = _ring_bwd(mesh, ar, wr, dc, _rs_dtype(ctx))
         else:
             da, dw = _fused_bwd(ctx, mesh, ar, wr, dc)
         if ctx.reduce_dgrad_in_op:

@@ -17,6 +17,10 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \
         --reduced --device cpu --steps 4 --seq 32 --batch 4
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \
+        --reduced --device cpu --steps 8 --seq 32 --batch 4 --ckpt ckpt \
+        --fault-plan "train.grads@3:nan;ckpt.write@5:corrupt(0,bit_flip)"
+
 Weights are random, from a fixed seed, the same global weights on every
 layout (each rank draws them and keeps its blocks), or the JAX package's
 global tree from ``--params`` (an .npz of ``convert.flatten_params``);
@@ -29,8 +33,14 @@ losses, grad norms, step time p50, tokens/s, the model-FLOPs share of the
 cards' bf16 peak and every rank's peak memory (``--out`` writes the
 losses and grad norms as JSON), and with ``--profile-step`` one more
 step's device time under torch.profiler (its NCCL kernels and its GEMMs
-apart).  The reference's pipeline, sequence-shard,
-checkpoint and fault-injection flags raise (ROADMAP Queue A, item A3).
+apart).  ``--ckpt DIR`` checkpoints every 50 steps and after the last
+one, and restores the newest checkpoint in DIR first (onto this layout,
+whatever layout wrote it); ``--fault-plan`` / ``--fault-seed`` inject the
+reference's faults at the train and ckpt sites (``runtime/faults.py``), and
+the summary then adds the ``resilience:`` line.  The reference's pipeline
+and sequence-shard flags raise (ROADMAP Queue A, item A3).  A caller of
+``main`` may pass the gradient wire formats as keywords
+(``grad_compression="bf16"``, ``dgrad_rs_bf16=True``).
 """
 from __future__ import annotations
 
@@ -40,7 +50,8 @@ import json
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak of one H100 SXM
 
 
-def main(argv=None):
+def main(argv=None, *, grad_compression: str = "none",
+         dgrad_rs_bf16: bool = False):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)
@@ -90,16 +101,21 @@ def main(argv=None):
                     help="write the losses and grad norms here (JSON)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when asked for")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory: restore the newest "
+                         "checkpoint there first, save every 50 steps")
+    ap.add_argument("--fault-plan", default="",
+                    help="deterministic fault schedule (runtime/faults.py "
+                         "DSL), e.g. 'train.grads@5:nan;ckpt.write@9:"
+                         "corrupt(0,bit_flip)'")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the fault schedule (replays identically)")
     # the reference's flags the port does not run yet
     ap.add_argument("--pipe", type=int, default=1)
     ap.add_argument("--seq-shards", type=int, default=1)
-    ap.add_argument("--ckpt", default="")
-    ap.add_argument("--fault-plan", default="")
     args = ap.parse_args(argv)
     for flag, off in (("--pipe", args.pipe == 1),
-                      ("--seq-shards", args.seq_shards == 1),
-                      ("--ckpt", not args.ckpt),
-                      ("--fault-plan", not args.fault_plan)):
+                      ("--seq-shards", args.seq_shards == 1)):
         if not off:
             raise NotImplementedError(
                 f"{flag} is not supported by repro_torch yet (ROADMAP "
@@ -125,11 +141,14 @@ def main(argv=None):
                     compute_dtype=args.compute_dtype, loss_chunk=128,
                     lr=args.lr, loss_scale=args.loss_scale,
                     attn_impl=args.attn_impl, accum_steps=args.accum,
-                    zero1=args.zero1, zero_stage=args.zero_stage)
+                    zero1=args.zero1, zero_stage=args.zero_stage,
+                    fault_plan=args.fault_plan, fault_seed=args.fault_seed,
+                    grad_compression=grad_compression)
     ctx = ParallelContext(mode=args.mode, data=args.data, depth=args.depth,
                           rows=args.rows, cols=args.cols,
                           matmul_schedule=args.matmul_schedule,
-                          attn_impl=run.attn_impl)
+                          attn_impl=run.attn_impl,
+                          dgrad_rs_bf16=dgrad_rs_bf16)
     mesh = Mesh(ctx)
     rank0 = mesh.rank == 0
     model = build_model(arch.model, ctx, run, device=dev, seed=0, mesh=mesh)
@@ -145,7 +164,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     kops.reset_launches()
-    res = train(model, shape, steps=args.steps, log_every=10)
+    res = train(model, shape, steps=args.steps, log_every=10,
+                ckpt_dir=args.ckpt)
     launches = dict(kops.LAUNCHES)
     peaks = None
     if cuda:
@@ -155,7 +175,12 @@ def main(argv=None):
         peaks = col.all_gather_inv(mesh, peak, AXES, tiled=True).tolist()
     if rank0:
         print(f"final loss {res.losses[-1]:.4f} after {len(res.losses)} "
-              f"steps")
+              f"steps ({res.restarts} restarts)")
+        if args.fault_plan:
+            print(f"resilience: nan_skips={res.nan_skips} "
+                  f"loss_scale_backoffs={res.loss_scale_backoffs} "
+                  f"ckpt_fallbacks={res.ckpt_fallbacks} "
+                  f"faults_fired={len(res.fault_log)}")
         print(f"losses {[round(x, 4) for x in res.losses]} grad norms "
               f"{[round(x, 4) for x in res.grad_norms]} step ms "
               f"{[round(t * 1e3, 1) for t in res.step_times]}")
@@ -164,7 +189,9 @@ def main(argv=None):
         print(f"mesh: {ctx.mode} data={ctx.data} depth={ctx.depth} "
               f"rows={ctx.rows} cols={ctx.cols} "
               f"matmul_schedule={ctx.matmul_schedule} "
-              f"zero1={run.zero_enabled} compute={run.compute_dtype}; "
+              f"zero1={run.zero_enabled} compute={run.compute_dtype} "
+              f"grad_compression={run.grad_compression} "
+              f"dgrad_rs_bf16={ctx.dgrad_rs_bf16}; "
               f"step p50 {p50 * 1e3:.1f} ms (first "
               f"{res.step_times[0] * 1e3:.1f} ms), tokens/s "
               f"{shape.seq_len * shape.global_batch / p50:.1f}; model "

@@ -104,11 +104,13 @@ def init_opt_state(model) -> dict:
                               master=run.master_weights)
 
 
-def sync_grads(mesh, grads, axes_per_leaf) -> None:
+def sync_grads(mesh, grads, axes_per_leaf, compress: str = "none") -> None:
     """All-reduce each gradient over its axes, in place: the backward of the
     reference's ``grad_sync``.  Leaves of one axis tuple and dtype go in
     buckets of up to ``BUCKET_NUMEL`` elements, in the same order on every
-    rank."""
+    rank.  ``compress="bf16"`` (``RunConfig.grad_compression``) sends each
+    bucket as bf16 and widens the sum back to the leaves' dtype, as the
+    reference's compressed ``grad_sync`` backward does."""
     groups: dict = {}
     for g, axes in zip(grads, axes_per_leaf):
         if mesh.group(axes) is not None:
@@ -117,7 +119,10 @@ def sync_grads(mesh, grads, axes_per_leaf) -> None:
         bucket, n = [], 0
         for g in leaves + [None]:
             if bucket and (g is None or n + g.numel() > BUCKET_NUMEL):
-                flat = col.psum(mesh, _flatten_dense_tensors(bucket), axes)
+                flat = _flatten_dense_tensors(bucket)
+                if compress == "bf16":
+                    flat = flat.to(torch.bfloat16)
+                flat = col.psum(mesh, flat, axes)
                 for dst, src in zip(bucket,
                                     _unflatten_dense_tensors(flat, bucket)):
                     dst.copy_(src)
@@ -152,6 +157,13 @@ def build_train_step(model, shape, *, accum_steps: int = 1,
       on any rank the update is not applied, so params and optimizer state
       stay bit-identical and ``metrics["skipped"]`` reads 1.
 
+    The fault port: a batch may hold ``fault_scale`` (a float), which
+    multiplies every gradient after the unscale, as the reference's
+    ``fault_port`` does; the train loop's injector sends NaN or Inf there
+    (``train.grads``), which the guard then catches.  With
+    ``run.grad_compression="bf16"`` the gradient sync and ZeRO-1's
+    reduce-scatter run in bf16 on the wire.
+
     ``loss_scale`` defaults to ``model.run.loss_scale``; the train loop's
     back-off passes a smaller one.  Metrics are floats, the same on every
     rank: "loss" (unscaled), "grad_norm" (before clipping), "lr",
@@ -177,6 +189,8 @@ def build_train_step(model, shape, *, accum_steps: int = 1,
         else None
 
     def step(opt_state, batch):
+        batch = dict(batch)
+        fscale = batch.pop("fault_scale", None)
         for p in params:
             p.grad = None
         loss = torch.zeros((), dtype=torch.float32, device=model.device)
@@ -189,7 +203,8 @@ def build_train_step(model, shape, *, accum_steps: int = 1,
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         if leaves is not None:
-            sync_grads(mesh, grads, [leaf[1] for leaf in leaves])
+            sync_grads(mesh, grads, [leaf[1] for leaf in leaves],
+                       run.grad_compression)
         # (sum of scaled microbatch grads) / accum / loss_scale, in the
         # reference's order
         if accum_steps > 1:
@@ -197,6 +212,9 @@ def build_train_step(model, shape, *, accum_steps: int = 1,
             torch._foreach_div_(grads, float(accum_steps))
         if ls != 1.0:
             torch._foreach_div_(grads, float(ls))
+        if fscale is not None and float(fscale) != 1.0:
+            # the fault port: an injected NaN / Inf reaches every gradient
+            torch._foreach_mul_(grads, float(fscale))
         lr = cosine_lr(opt_state["step"], base_lr=run.lr, warmup=100,
                        total=10000)
         if run.zero_enabled:
@@ -251,7 +269,7 @@ def zero_optimizer_step(model, params, grads, state, leaves, *, lr, loss):
     on any rank."""
     mesh, run = model.mesh, model.run
     g_sl = [zero.zslice(mesh, g, lay) if in_op else
-            zero.zreduce_scatter(mesh, g, lay)
+            zero.zreduce_scatter(mesh, g, lay, run.grad_compression)
             for g, (_, _, lay, in_op) in zip(grads, leaves)]
     sq = sum((g.float() ** 2).sum() / mesh.axis_size(
         tuple(a for a in replicated_axes(spec) if a not in lay.zaxes))

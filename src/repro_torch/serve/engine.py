@@ -15,7 +15,8 @@ injectable engine clock, a NaN/Inf logit guard that quarantines only the
 poisoned slot (re-prefill with the position-keyed sampler keeps its tokens),
 and a graceful decode-batch shrink after repeated pool-OOM preemption
 storms.  Not in this port yet (ROADMAP Queue A): the prefix cache, chunked
-prefill, speculative decoding, fault injection and elastic replans.
+prefill, speculative decoding, the engine's fault sites (a plan naming a
+``serve.*`` site is refused) and elastic replans.
 
 Across ranks every rank runs this same host loop in lockstep (multi-
 controller): each holds the same scheduler and allocator state and calls
@@ -38,6 +39,7 @@ import torch
 from ..core.collectives import broadcast_scalar
 from ..core.device import resolve_device
 from ..kernels.ops import effective_attn_impl
+from ..runtime.faults import injector_from_run
 from ..runtime.steps import paged_reshard
 from .kv_cache import PagedCacheConfig, PagedKVCache
 from .sampling import SamplingParams, sample_tokens, slot_arrays
@@ -127,6 +129,11 @@ class InferenceEngine:
                 raise NotImplementedError(
                     f"EngineConfig.{knob} is not ported yet (ROADMAP Queue A, "
                     f"item A3)")
+        if injector_from_run(model.run, sites=("serve",)) is not None:
+            raise NotImplementedError(
+                f"the fault plan {model.run.fault_plan!r} names a serve.* "
+                f"site: the engine's fault sites are not ported yet (ROADMAP "
+                f"Queue A, item A3)")
         self.model, self.cfg = model, cfg
         self.mesh = model.mesh
         # injectable wall clock: deadline/TTFT tests drive a fake clock

@@ -54,7 +54,23 @@ or on ``--layout data,1,1,cols``.  Checks:
   gradient leaf reassembled (``convert.unshard_params``), and the params
   after 2 AdamW steps; then ZeRO-1 against the replicated
   optimizer (params after 2 steps, and each leaf's state slice 1/zn of its
-  block).  fp32; bounds in ``TRAIN_TOL``.
+  block).  fp32; bounds in ``TRAIN_TOL``.  The bf16 wire formats, on
+  both schedules (``grad_compression`` where data x depth > 1,
+  ``dgrad_rs_bf16`` where q > 1): the loss, every gradient leaf within
+  ``WIRE_HOPS_TOL`` of its max, and ZeRO-1's 2 steps;
+- ``train_restart``: ``runtime/train_loop.train`` on the mesh through a
+  NaN step, a damaged checkpoint and a crash (fused), and a NaN step and a
+  crash without checkpoints (ring): each step's loss equals the
+  uninterrupted run's, restarts / fallbacks / skips and launch counts as
+  the plan implies; then the last checkpoint restores onto ``megatron1d``
+  (cols = the mesh's ranks) and its next loss equals the uninterrupted
+  run's;
+- ``zero1_elastic`` (a mesh with data > 1, e.g. ``--layout 2,2,1,1``):
+  ZeRO-1 training loses half its ranks (``train.step@4:device_loss``),
+  ``runtime/elastic.replan`` halves data and doubles the accumulation,
+  and ``train`` continues on a ``Mesh`` over the survivors from the last
+  checkpoint, its state resliced to the new zn: the losses continue the
+  uninterrupted run's.
 
 Every rank takes the same decisions from the same values, so a failed
 check fails on every rank at once: the error is reduced over the mesh
@@ -67,11 +83,14 @@ import dataclasses
 import itertools
 import json
 import os
+import shutil
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs.base import RunConfig
 from ..configs.base import ShapeSpec
@@ -768,6 +787,15 @@ def _train_cases(device, ctx):
                  grid=[("fused", True, False, True)])]
 
 
+def _train_cfg(case):
+    """The model config of a train case."""
+    cfg = (get_reduced(case["arch"]) if case.get("reduced")
+           else get_arch(case["arch"])).model
+    if "layers" in case:
+        cfg = dataclasses.replace(cfg, num_layers=case["layers"])
+    return dataclasses.replace(cfg, **case.get("model", {}))
+
+
 def _train_grid(device, ctx):
     """(schedule, in-op dW reduction, fused cache knobs flipped, ZeRO-1
     run) per mesh run.  The card, where every comparison moves a
@@ -782,6 +810,94 @@ def _train_grid(device, ctx):
                 ("fused", False, False, False)]
     return [(s, i, False, True) for s, i in itertools.product(
         ("fused", "ring"), (True, False))] + [("fused", True, True, False)]
+
+
+# The bf16 wire formats against the uncompressed one-rank step.  A value
+# sent as bf16 is rounded once (at most u = 2^-8 of its magnitude) and each
+# of the n - 1 additions of a reduction over n members rounds again (at
+# most u of the partial sum), so an element reduced over n members is off
+# by at most (2n - 1) u S, with S the largest partial sum on its way; a
+# leaf's partial sums stay within twice its largest |gradient| here (a
+# rank's share of a sum over the batch), so each leaf is held within
+# WIRE_HOPS_TOL(n) of its max.  n: the data x depth members of the
+# gradient sync (grad_compression="bf16"), or q, the row members of the
+# SUMMA dW reduce-scatter and the ring's accumulator (dgrad_rs_bf16, with
+# the in-op psum over data x depth = 1 on its mesh).
+def WIRE_HOPS_TOL(n: int) -> float:
+    return (2 * n - 1) * 2.0 ** -8 * 2
+
+
+def _wire_grid(ctx):
+    """(schedule, wire format, members n of its reduction) per compressed
+    run, each on both schedules: the gradient sync in bf16 on a mesh of
+    data x depth > 1 with q 1 (the in-op dW reduction off, so every leaf
+    takes it), the SUMMA dW reductions in bf16 on a q > 1 grid with data x
+    depth 1 (``--layout 2,2,1,1`` and ``1,1,2,2``; other layouts run
+    none)."""
+    if ctx.mode == "megatron1d":
+        return []
+    dd = ctx.data * ctx.depth
+    if dd > 1 and ctx.cols == 1:
+        return [(s, "grad_compression", dd) for s in ("fused", "ring")]
+    if ctx.cols > 1 and dd == 1:
+        return [(s, "dgrad_rs_bf16", ctx.cols) for s in ("fused", "ring")]
+    return []
+
+
+def _check_wire_formats(mesh, dev, cfg, run, case, shape, batch, want_loss,
+                        want_grads, want_metrics, tol):
+    """Each compressed run's loss (the forward does not change), every
+    synced gradient leaf within WIRE_HOPS_TOL of its max, and, with ZeRO-1
+    (whose reduce-scatter then runs in bf16 too), 2 steps' losses and
+    grad norms.  Returns the worst leaf error as a share of its bound."""
+    worst = 0.0
+    for sched, wire, n in _wire_grid(mesh.ctx):
+        t1 = time.perf_counter()
+        bound = WIRE_HOPS_TOL(n)
+        ctx = mesh.ctx.replace(matmul_schedule=sched, attn_impl="auto",
+                               reduce_dgrad_in_op=wire == "dgrad_rs_bf16",
+                               dgrad_rs_bf16=wire == "dgrad_rs_bf16")
+        wrun = dataclasses.replace(
+            run, grad_compression=("bf16" if wire == "grad_compression"
+                                   else "none"))
+        what = f"{case['arch']} {sched} {wire}"
+        model = build_model(cfg, ctx, wrun, device=dev, seed=0, mesh=mesh)
+        loss = model.loss(batch)
+        loss.backward()
+        grads = [p.grad for p in model.parameters()]
+        sync_grads(mesh, grads, [leaf[1] for leaf in leaf_layouts(model)],
+                   wrun.grad_compression)
+        d_loss = abs(float(loss.detach()) - want_loss)
+        g_err = _tree_err(unshard_params(
+            _gather_tree(mesh, dev, grads_to_numpy(model)), cfg, ctx),
+            want_grads)
+        bad = {k: v for k, v in g_err.items() if v > bound}
+        _agree(mesh, dev, d_loss <= tol["loss"] and not bad,
+               f"{what}: loss off by {d_loss:.3g}, gradient leaves over "
+               f"the bf16 bound {bound:.3g}: {bad}")
+        # the fp32 wire would be exact to 1e-5 here: bf16 must show
+        wire_moved = max(g_err.values()) > tol["grad"]
+        _agree(mesh, dev, wire_moved, f"{what}: no gradient leaf moved "
+                                      f"past fp32 noise: bf16 not on the "
+                                      f"wire")
+        worst = max(worst, max(g_err.values()) / bound)
+        del model
+        zrun = dataclasses.replace(wrun, zero1=True)
+        zmodel = build_model(cfg, ctx, zrun, device=dev, seed=0, mesh=mesh)
+        zmetrics, _ = _two_steps(zmodel, shape, cfg, case, dev)
+        zl = max(abs(a["loss"] - b["loss"])
+                 for a, b in zip(zmetrics, want_metrics))
+        zg = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                 for a, b in zip(zmetrics, want_metrics))
+        _agree(mesh, dev, zl <= tol["loss"] and zg <= bound,
+               f"{what} ZeRO-1: 2 steps' losses off by {zl:.3g}, grad "
+               f"norms by {zg:.3g} of theirs (bound {bound:.3g})")
+        del zmodel
+        log(mesh, f"    {what} (n {n}): loss off by {d_loss:.3g}, "
+                  f"gradients within {max(g_err.values()):.3g} of max "
+                  f"(bound {bound:.3g}); ZeRO-1 2 steps: loss {zl:.3g}, "
+                  f"grad norm {zg:.3g}; {time.perf_counter() - t1:.1f} s")
+    return worst
 
 
 def _gather_tree(mesh: Mesh, dev, tree):
@@ -832,15 +948,11 @@ def _two_steps(model, shape, cfg, case, dev):
 
 def check_train_parity(mesh: Mesh, dev, args):
     tol = TRAIN_TOL[dev.type]
-    worst = dict(loss=0.0, grad=0.0, param=0.0, zero1=0.0)
+    worst = dict(loss=0.0, grad=0.0, param=0.0, zero1=0.0, wire=0.0)
     n_runs = 0
     for case in _train_cases(dev, mesh.ctx):
         t0 = time.perf_counter()
-        cfg = (get_reduced(case["arch"]) if case.get("reduced")
-               else get_arch(case["arch"])).model
-        if "layers" in case:
-            cfg = dataclasses.replace(cfg, num_layers=case["layers"])
-        cfg = dataclasses.replace(cfg, **case.get("model", {}))
+        cfg = _train_cfg(case)
         run = RunConfig(param_dtype="float32", compute_dtype="float32",
                         attn_impl="auto", loss_chunk=case["chunk"],
                         lr=TRAIN_LR)
@@ -856,6 +968,10 @@ def check_train_parity(mesh: Mesh, dev, args):
         want_metrics, _ = _two_steps(one, shape, cfg, case, dev)
         want_params = params_to_numpy(one)
         del one
+        if case["arch"] == "yi-6b" and "model" not in case:
+            worst["wire"] = _check_wire_formats(
+                mesh, dev, cfg, run, case, shape, batch, want_loss,
+                want_grads, want_metrics, tol)
         grid = case.get("grid") or _train_grid(dev, mesh.ctx)
         for k, (sched, inop, flip, zero1) in enumerate(grid):
             t1 = time.perf_counter()
@@ -944,7 +1060,8 @@ def check_train_parity(mesh: Mesh, dev, args):
     log(mesh, f"PASS train_parity ({n_runs} runs on {mesh.size} ranks; "
               f"worst: loss {worst['loss']:.3g}, grad {worst['grad']:.3g}, "
               f"param {worst['param']:.3g} of max, ZeRO-1 "
-              f"{worst['zero1']:.3g})")
+              f"{worst['zero1']:.3g}, bf16 wire formats "
+              f"{worst['wire']:.3g} of their bound)")
 
 
 def _param_err(got, want, rel, atol):
@@ -977,10 +1094,234 @@ def _check_zero_state(mesh, dev, model, opt, what):
                           f"their blocks")
 
 
+# ------------------------------------------- train_restart, zero1_elastic
+
+RESTART_STEPS = 6       # steps of a faulted run
+RESTART_LR = 1e-3
+
+
+def _restart_case(device):
+    """The train_parity case of yi-6b (full width, 2 layers, on the card;
+    reduced on the CPU)."""
+    return [c for c in _train_cases(device, ParallelContext())
+            if c["arch"] == "yi-6b" and "model" not in c][0]
+
+
+def _restart_model(case, dev, ctx, mesh, **run_kw):
+    run = RunConfig(param_dtype="float32", compute_dtype="float32",
+                    attn_impl="auto", loss_chunk=case["chunk"],
+                    lr=RESTART_LR, **run_kw)
+    return build_model(_train_cfg(case), ctx, run, device=dev, seed=0,
+                       mesh=mesh)
+
+
+def _shared_dir(mesh: Mesh) -> str:
+    """A fresh directory made by rank 0, its path on every rank."""
+    path = [tempfile.mkdtemp(prefix="mdchecks-ckpt-")
+            if mesh.rank == 0 else None]
+    if mesh.world > 1:
+        dist.broadcast_object_list(path, src=0)
+    return path[0]
+
+
+def _drop_dir(mesh: Mesh, path: str) -> None:
+    if mesh.world > 1:
+        dist.barrier()
+    if mesh.rank == 0:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def _crash_once(at: int):
+    fired = []
+
+    def hook(step):
+        if step == at and not fired:
+            fired.append(step)
+            raise RuntimeError(f"injected crash before step {at}")
+    return hook
+
+
+def _by_step(res) -> dict:
+    """The last loss of each step (a replayed step's replay)."""
+    return dict(zip(res.loss_steps, res.losses))
+
+
+def check_train_restart(mesh: Mesh, dev, args):
+    """Restart parity on the mesh: per schedule, an uninterrupted run of
+    RESTART_STEPS + 1 steps, then a faulted run of RESTART_STEPS through
+    ``train``: on the fused schedule with checkpoints every 2 steps, a NaN
+    at step 2 (one retry), the step-3 checkpoint damaged (bit flip) and a
+    crash before step 5, which restores step 1 and replays 2-4; on the ring
+    (kernel #2 on the card) a NaN at step 2 and a crash before step 4 with
+    no checkpoint, which starts again from the initial weights.  Each
+    step's loss equals the uninterrupted run's within TRAIN_TOL's loss,
+    restarts / fallbacks / NaN skips are (1, 1, 1) and (1, 0, 1), and the
+    faulted run launched each kernel the uninterrupted run's count per
+    step execution times its executions.  Then the fused run's last
+    checkpoint restores onto the 1-D baseline (``megatron1d``, cols = the
+    mesh's ranks), whose next step's loss equals the uninterrupted run's
+    last."""
+    from ..checkpoint.ckpt import CheckpointManager, load_state
+    from ..data.pipeline import SyntheticLMStream
+    from ..optim.zero import make_ckpt_converter
+    from ..runtime.train_loop import train
+    tol = TRAIN_TOL[dev.type]["loss"]
+    case = _restart_case(dev)
+    shape = ShapeSpec("train", case["seq"], case["batch"], "train")
+    N = RESTART_STEPS
+    root = _shared_dir(mesh)
+    worst = 0.0
+    try:
+        for sched in ("fused", "ring"):
+            t0 = time.perf_counter()
+            ctx = mesh.ctx.replace(matmul_schedule=sched, attn_impl="auto")
+            model = _restart_model(case, dev, ctx, mesh)
+            kops.reset_launches()
+            want = train(model, shape, steps=N + 1, log_every=0).losses
+            per_step = dict(kops.LAUNCHES)
+            del model
+            fused = sched == "fused"
+            plan = "train.grads@2:nan" + (
+                ";ckpt.write@3:corrupt(0,bit_flip)" if fused else "")
+            model = _restart_model(case, dev, ctx, mesh, fault_plan=plan,
+                                   fault_seed=3)
+            kops.reset_launches()
+            res = train(model, shape, steps=N, log_every=0,
+                        ckpt_dir=os.path.join(root, sched) if fused
+                        else None, ckpt_every=2,
+                        fault_hook=_crash_once(5 if fused else 4))
+            launches = dict(kops.LAUNCHES)
+            del model
+            got = _by_step(res)
+            err = max(abs(got[s] - want[s]) for s in range(N))
+            counts = (res.restarts, res.ckpt_fallbacks, res.nan_skips)
+            want_counts = (1, 1 if fused else 0, 1)
+            execs = len(res.losses) + res.nan_skips
+            bad_l = {k: (v, per_step[k]) for k, v in launches.items()
+                     if v * (N + 1) != per_step[k] * execs}
+            _agree(mesh, dev, err <= tol and counts == want_counts
+                   and not bad_l and sorted(got) == list(range(N)),
+                   f"train_restart {sched}: losses off by {err:.3g}, "
+                   f"(restarts, fallbacks, nan skips) {counts}, want "
+                   f"{want_counts}, launches off the per-step count "
+                   f"{bad_l}")
+            worst = max(worst, err)
+            log(mesh, f"  train_restart {sched}: steps run "
+                      f"{res.loss_steps} (+{res.nan_skips} skipped), losses "
+                      f"within {err:.3g} of the uninterrupted run's; "
+                      f"(restarts, fallbacks, nan skips) {counts}; "
+                      f"launches {launches}; {time.perf_counter() - t0:.1f} s")
+        if mesh.ctx.mode == "megatron1d" or mesh.size == 1:
+            log(mesh, f"PASS train_restart (worst loss {worst:.3g})")
+            return
+        t0 = time.perf_counter()
+        mctx = ParallelContext(mode="megatron1d", data=mesh.ctx.data,
+                               cols=mesh.size // mesh.ctx.data,
+                               attn_impl="auto")
+        mmesh = Mesh(mctx)
+        model = _restart_model(case, dev, mctx, mmesh)
+        mgr = CheckpointManager(os.path.join(root, "fused"), mesh=mmesh,
+                                device=dev)
+        leaves, last = mgr.restore_latest(make_ckpt_converter(None))
+        opt = load_state(model, leaves)
+        del leaves
+        batch = SyntheticLMStream(model.cfg.vocab_size, shape.global_batch,
+                                  shape.seq_len).batch(N)
+        metrics = build_train_step(model, shape)(
+            opt, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        err = abs(metrics["loss"] - want[N])
+        _agree(mesh, dev, last == N - 1 and opt["step"] == N + 1
+               and err <= tol,
+               f"train_restart: step {last} (opt step {opt['step']}) onto "
+               f"megatron1d cols {mctx.cols}: next loss off by {err:.3g}")
+        del model, opt
+        mmesh._groups.clear()
+        log(mesh, f"  train_restart: the fused run's step-{last} checkpoint "
+                  f"onto megatron1d cols {mctx.cols}: step {N} loss within "
+                  f"{err:.3g}; {time.perf_counter() - t0:.1f} s")
+        log(mesh, f"PASS train_restart (worst loss {max(worst, err):.3g})")
+    finally:
+        _drop_dir(mesh, root)
+
+
+def check_zero1_elastic(mesh: Mesh, dev, args):
+    """Elastic recovery with ZeRO-1 (on a mesh with data > 1, e.g.
+    ``--layout 2,2,1,1``): an uninterrupted run of RESTART_STEPS steps,
+    then a run that checkpoints every 2 steps and loses half its ranks
+    before step 4 (``train.step@4:device_loss``), which ``train`` raises
+    past its restart budget; ``replan`` keeps the TP group and halves data
+    with twice the accumulation, and ``train`` runs again on a ``Mesh``
+    over the surviving ranks (the others wait at a barrier): it restores
+    the step-3 checkpoint, every leaf's optimizer state resliced to the
+    new zn, and its losses continue the uninterrupted run's within
+    TRAIN_TOL's loss."""
+    from ..runtime import faults
+    from ..runtime.elastic import replan
+    from ..runtime.train_loop import train
+    tol = TRAIN_TOL[dev.type]["loss"]
+    case = _restart_case(dev)
+    shape = ShapeSpec("train", case["seq"], case["batch"], "train")
+    N, ctx = RESTART_STEPS, mesh.ctx.replace(attn_impl="auto")
+    survivors = mesh.size // 2
+    root = _shared_dir(mesh)
+    try:
+        t0 = time.perf_counter()
+        model = _restart_model(case, dev, ctx, mesh, zero1=True)
+        want = train(model, shape, steps=N, log_every=0).losses
+        zn = {n: lay.zn for (n, _), (_, _, lay, _) in zip(
+            model.named_parameters(), leaf_layouts(model))}
+        del model
+        model = _restart_model(
+            case, dev, ctx, mesh, zero1=True,
+            fault_plan=f"train.step@4:device_loss({survivors})")
+        inj = faults.injector_from_run(model.run, sites=("train", "ckpt"))
+        lost = None
+        try:
+            train(model, shape, steps=N, log_every=0, ckpt_dir=root,
+                  ckpt_every=2, injector=inj)
+        except faults.DeviceLostError as e:
+            lost = e
+        del model
+        _agree(mesh, dev, lost is not None and lost.n_surviving == survivors
+               and lost.partial_result.last_step == 3,
+               f"zero1_elastic: no device loss after step 3 ({lost!r})")
+        rp = replan(lost.n_surviving, ctx, global_batch=shape.global_batch)
+        small = Mesh(rp.ctx)             # every rank takes part in its groups
+        ok, msg = True, ""
+        if small.active:
+            model = _restart_model(case, dev, rp.ctx, small, zero1=True)
+            zn2 = {n: lay.zn for (n, _), (_, _, lay, _) in zip(
+                model.named_parameters(), leaf_layouts(model))}
+            res = train(model, shape, steps=N, log_every=0, ckpt_dir=root,
+                        accum_steps=rp.accum_steps, injector=inj)
+            err = max(abs(a - b) for a, b in zip(res.losses, want[4:]))
+            ok = (res.loss_steps == list(range(4, N)) and err <= tol
+                  and zn2 != zn)
+            msg = (f"zero1_elastic on {rp.n_used} ranks: steps "
+                   f"{res.loss_steps}, losses off by {err:.3g}")
+            log(small, f"  zero1_elastic: device loss before step 4, replan "
+                       f"{mesh.size} -> {rp.n_used} ranks (data "
+                       f"{ctx.data} -> {rp.ctx.data}, accum "
+                       f"{rp.accum_steps}); restored step 3, embed state zn "
+                       f"{zn['embed']} -> {zn2['embed']}; steps "
+                       f"{res.loss_steps} losses within {err:.3g} of the "
+                       f"uninterrupted run's; "
+                       f"{time.perf_counter() - t0:.1f} s")
+            del model
+        small._groups.clear()
+        dist.barrier()                   # the idle ranks wait here
+        _agree(mesh, dev, ok, msg)
+        log(mesh, "PASS zero1_elastic")
+    finally:
+        _drop_dir(mesh, root)
+
+
 CHECKS = {"collectives": check_collectives, "summa_exact": check_summa_exact,
           "serve_engine": check_serve_engine,
           "ssm_serve": check_ssm_serve,
-          "train_parity": check_train_parity}
+          "train_parity": check_train_parity,
+          "train_restart": check_train_restart,
+          "zero1_elastic": check_zero1_elastic}
 
 
 def main(argv=None):

@@ -54,7 +54,8 @@ def test_engine_imports_with_jax_blocked():
             "import repro_torch.serve.engine, repro_torch.launch.serve, "
             "repro_torch.runtime.train_loop, repro_torch.launch.train, "
             "repro_torch.models.ssm, repro_torch.kernels.ssd, "
-            "repro_torch.testing.mdchecks; "
+            "repro_torch.testing.mdchecks, repro_torch.checkpoint.ckpt, "
+            "repro_torch.runtime.elastic, repro_torch.runtime.faults; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
@@ -172,12 +173,8 @@ def test_attn_impl_resolution():
 
 
 def test_unported_features_raise():
-    with pytest.raises(NotImplementedError, match="fault_plan"):
-        RunConfig(fault_plan="serve.step@1:drop_step")
     with pytest.raises(TypeError):             # pipeline knobs: not copied
         RunConfig(pipe_stages=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RunConfig(grad_compression="bf16")
     with pytest.raises(TypeError):             # AdamW only; LAMB comes in A3
         RunConfig(optimizer="lamb")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -190,13 +187,22 @@ def test_unported_features_raise():
                  {"spec_k": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceEngine(model, EngineConfig(**knob), device="cpu")
+    # the engine's fault sites stay unported: a plan naming one is refused
+    # (a train-only plan is not the engine's business)
+    for plan, refused in (("serve.step@1:drop_step", True),
+                          ("train.grads@1:nan;serve.logits@2:nan(1)", True),
+                          ("train.grads@1:nan", False)):
+        faulty = build_model(cfg, ParallelContext(),
+                             RunConfig(param_dtype="float32",
+                                       compute_dtype="float32",
+                                       fault_plan=plan), device="cpu")
+        if refused:
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                InferenceEngine(faulty, EngineConfig(), device="cpu")
+        else:
+            InferenceEngine(faulty, EngineConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_reduced("recurrentgemma-9b")
-    from repro_torch.configs.base import ShapeSpec
-    from repro_torch.runtime.train_loop import train
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(model, ShapeSpec("t", 8, 2, "train"), steps=1,
-              ckpt_dir="ckpt")
 
 
 def test_serve_launcher_runs_on_cpu(capsys):

@@ -19,6 +19,7 @@ The multi-rank parity itself runs in the torchrun spawns of
 """
 import dataclasses
 import itertools
+import pathlib
 
 import jax
 import numpy as np
@@ -166,20 +167,28 @@ def test_one_rank_zero1_is_the_replicated_update():
 
 
 @pytest.mark.parametrize("flag", [["--pipe", "2"], ["--seq-shards", "2"],
-                                  ["--ckpt", "ckpt"],
-                                  ["--fault-plan", "train.grads@1:nan"]])
+                                  ["--arch", "mamba2-1.3b", "--ckpt",
+                                   "ckpt"],
+                                  ["--arch", "mamba2-1.3b", "--fault-plan",
+                                   "train.grads@1:nan"]])
 def test_launcher_refuses_unported_flags(flag):
+    """The pipeline and sequence-shard flags raise; checkpoints and fault
+    plans run, but not past the ssm family's refusal to train (before the
+    checkpoint directory is made)."""
     from repro_torch.launch.train import main
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A, item A3"):
         main(["--arch", "yi-6b", "--reduced", "--device", "cpu",
               "--steps", "1"] + flag)
+    assert not pathlib.Path("ckpt").exists()
 
 
 def test_unported_gradient_formats_refuse():
-    with pytest.raises(NotImplementedError, match="item A3"):
-        RunConfig(grad_compression="bf16")
-    with pytest.raises(NotImplementedError, match="item A3"):
-        _tiny(ParallelContext(dgrad_rs_bf16=True))
+    """Both of the reference's gradient wire formats are ported; any other
+    is refused, and ssm training stays refused (ROADMAP A3)."""
+    assert RunConfig(grad_compression="bf16").grad_compression == "bf16"
+    assert _tiny(ParallelContext(dgrad_rs_bf16=True)).ctx.dgrad_rs_bf16
+    with pytest.raises(ValueError, match="grad_compression"):
+        RunConfig(grad_compression="fp8")
     ssm = build_model(get_reduced("mamba2-1.3b").model, ParallelContext(),
                       RunConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="item A3: ssm training"):
