@@ -78,6 +78,15 @@ non-zero and prints no result:
    ln(vocab), no skipped step, 32 launches per step of each flash kernel
    and 7 x 32 of tesseract_mm; step time, tokens/s, peak memory, model
    FLOPs share and a profile;
+   train features: the same 10 steps under remat="dots" (losses equal to
+   phase 11's bit for bit; per step 64 flash forward launches, 32 of dQ
+   and of dK/dV, 7 x 32 of tesseract_mm: the recompute hands the products
+   back), 2 steps under remat="full" (2 x 7 x 32 tesseract_mm a step), the
+   dots peak memory strictly between full's and phase 11's; one LAMB
+   update at fp32 (B 2, T 1024) against a float64 host evaluation of the
+   reference's formula with a trust ratio per stacked leaf (within 1e-6
+   of each leaf's largest update), then 10 LAMB steps at bf16 compute on
+   one batch: finite, none skipped, the last loss below the first;
 12. train restart: the same run from the same weights through the
    fault-tolerant path (checkpoints every 3 steps into a temporary
    directory, a NaN at step 4, the step-5 checkpoint damaged, a crash
@@ -547,14 +556,15 @@ PAGED_SPLIT_CASES = (
      dict(bs=16, window=0, one_kv=True)))
 
 
-def _model(arch, param_dtype, compute_dtype, attn_impl):
+def _model(arch, param_dtype, compute_dtype, attn_impl, **run_kw):
     """Full-width ``arch`` on the card with random weights from seed 0
-    (remat off: the train phases keep every activation)."""
+    (remat off unless ``run_kw`` says otherwise: the train phases keep
+    every activation)."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.core.api import ParallelContext
     from repro_torch.models.registry import build_model, get_arch
     run = RunConfig(param_dtype=param_dtype, compute_dtype=compute_dtype,
-                    attn_impl=attn_impl, remat="none")
+                    attn_impl=attn_impl, **{"remat": "none", **run_kw})
     ctx = ParallelContext(mode="tesseract", attn_impl=attn_impl)
     return build_model(get_arch(arch).model, ctx, run, device="cuda", seed=0)
 
@@ -867,7 +877,169 @@ def phase_train():
     profile_train_step(model, shape)
     del model
     torch.cuda.empty_cache()
-    return launches, res.losses
+    return launches, res.losses, peak
+
+
+def _train_run(steps, stream=None, **run_kw):
+    """``steps`` steps of phase_train's run (smollm-360m from seed 0, fp32
+    params, bf16 compute, seq 2048 x batch 8, the seed-0 stream unless
+    ``stream`` is given) with ``run_kw`` changed, the launch counters
+    zeroed just before: (the TrainResult, the launches, the peak device
+    memory in bytes)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime.train_loop import train
+    model = _model(TRAIN_ARCH, "float32", "bfloat16", "auto", **run_kw)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    res = train(model, shape, steps=steps, seed=0, log_every=1,
+                stream=stream)
+    torch.cuda.synchronize()
+    launches = dict(kops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    del model
+    torch.cuda.empty_cache()
+    return res, launches, peak
+
+
+LAMB_CHECK_LR = 1.0  # one step's update as large as the params, so the
+                     # fp32 rounding of the new params stays ~1e-7 of it
+
+
+def _lamb_check():
+    """One LAMB update on the card against a float64 host evaluation of
+    the reference's formula: smollm-360m at full width in fp32 (TF32 off),
+    B = 2, T = 1024, the second of two steps (so m and v are not zero);
+    the trust ratios over each stacked reference leaf (``leaf_groups``).
+    Fails unless every leaf's |update - float64 update| is within 1e-6
+    of its max |float64 update|."""
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime.steps import lamb_update_fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _model(TRAIN_ARCH, "float32", "float32", "auto",
+                   optimizer="lamb")
+    params = list(model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+    update = lamb_update_fn(model, None)
+    groups = update.keywords["leaf_groups"]
+    opt = adamw_init(params)
+    wd, b1, b2, eps = model.run.weight_decay, 0.9, 0.999, 1e-6
+    for step in range(2):
+        model.zero_grad(set_to_none=True)
+        model.loss(_train_batch(model, 1024, 2, step=step)).backward()
+        grads = [p.grad for p in params]
+        if step == 1:
+            host = [tuple(t.detach().cpu().numpy().copy() for t in leaf)
+                    for leaf in zip(params, grads, opt["m"], opt["v"])]
+        update(params, grads, opt, lr=LAMB_CHECK_LR, weight_decay=wd)
+    torch.cuda.synchronize()
+    # the bias corrections as the reference computes them, in fp32
+    f32 = np.float32
+    c1, c2 = (float(f32(1) - f32(b) ** f32(2)) for b in (b1, b2))
+    worst, worst_name = 0.0, ""
+    for g in range(max(groups) + 1):
+        idx = [i for i, k in enumerate(groups) if k == g]
+        us, pn2, un2 = [], 0.0, 0.0
+        for i in idx:
+            p0, gr, m0, v0 = (a.astype(np.float64) for a in host[i])
+            m1 = b1 * m0 + (1 - b1) * gr
+            v1 = b2 * v0 + (1 - b2) * gr * gr
+            u = (m1 / c1) / (np.sqrt(v1 / c2) + eps) + wd * p0
+            us.append(u)
+            pn2 += float((p0 * p0).sum())
+            un2 += float((u * u).sum())
+        trust = (np.sqrt(pn2) / np.sqrt(un2) if pn2 > 0 and un2 > 0
+                 else 1.0)
+        for i, u in zip(idx, us):
+            want = LAMB_CHECK_LR * trust * u
+            got = host[i][0].astype(np.float64) \
+                - params[i].detach().cpu().numpy().astype(np.float64)
+            rel = float(np.abs(got - want).max()) / max(
+                float(np.abs(want).max()), 1e-30)
+            if rel > worst:
+                worst, worst_name = rel, names[i]
+    log(f"train features: LAMB update of {TRAIN_ARCH} (fp32, B=2 T=1024, "
+        f"step 2, lr {LAMB_CHECK_LR}) against the float64 formula with the "
+        f"trust ratio per stacked leaf ({max(groups) + 1} groups of "
+        f"{len(params)} leaves): worst leaf |diff| / max |update| "
+        f"{worst:.3g} ({worst_name})")
+    check(worst <= 1e-6, f"LAMB update off the float64 formula by "
+                         f"{worst:.3g} of max |update| ({worst_name})")
+    del model, opt, host
+    torch.cuda.empty_cache()
+
+
+def phase_train_features(want_losses, none_peak):
+    """remat="dots" and LAMB on phase_train's path.  dots: the same 10
+    steps as phase_train (remat="none"): losses bit-equal to its own, each
+    flash kernel's launches exact (#3 twice a layer a step: the recompute
+    runs attention again; #4 and #5 once), #1 7 x 32 a step (the
+    recompute hands the products back) and #2 none; its peak memory
+    strictly between remat="full"'s (2 steps: #1 2 x 7 x 32 a step) and
+    phase_train's.  LAMB: one fp32 update against the float64 formula
+    (``_lamb_check``), then 10 bf16-compute steps through
+    ``train(optimizer="lamb")`` on one batch (the stream's step-0 batch
+    at every step: its tokens are uniform, so a new batch each step leaves
+    nothing to learn in 10 warm-up steps, and only a batch seen again
+    shows the optimizer fitting): finite losses, none skipped, the last
+    below the first."""
+    from repro_torch.models.registry import get_arch
+    L = get_arch(TRAIN_ARCH).model.num_layers
+    res, launches, peak = _train_run(TRAIN_STEPS, remat="dots")
+    same = [a == b for a, b in zip(res.losses, want_losses)]
+    p50 = float(np.median(res.step_times))
+    log(f"train features: remat=dots, {TRAIN_STEPS} steps: losses "
+        f"{['%.4f' % x for x in res.losses]}, bit-equal to phase_train's "
+        f"(remat=none): {same}; step time p50 {p50 * 1e3:.1f} ms (first "
+        f"{res.step_times[0] * 1e3:.1f} ms); peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches}")
+    check(len(same) == TRAIN_STEPS and all(same),
+          f"remat=dots losses {res.losses} != remat=none's {want_losses}")
+    steps = L * TRAIN_STEPS
+    want = {"flash_fwd": 2 * steps, "flash_dq": steps, "flash_dkv": steps,
+            "tesseract_mm": DENSE_MM * steps, "tesseract_mm_stream": 0}
+    check(all(launches[k] == n for k, n in want.items()),
+          f"remat=dots launches {launches}, want {want}")
+    fres, flaunches, fpeak = _train_run(2, remat="full")
+    log(f"train features: remat=full, 2 steps: step times ms "
+        f"{[round(t * 1e3, 1) for t in fres.step_times]}; peak device "
+        f"memory {fpeak / 2**30:.2f} GiB; "
+        f"launches {flaunches}")
+    check(flaunches["tesseract_mm"] == 2 * DENSE_MM * L * 2,
+          f"remat=full launched tesseract_mm {flaunches['tesseract_mm']} "
+          f"times, want 2 x {DENSE_MM} x {L} x 2")
+    log(f"train features: peak device memory GiB: remat=full "
+        f"{fpeak / 2**30:.2f} < dots {peak / 2**30:.2f} < none "
+        f"{none_peak / 2**30:.2f}")
+    check(fpeak < peak < none_peak,
+          f"remat=dots peak {peak} not strictly between full's {fpeak} and "
+          f"none's {none_peak}")
+    _lamb_check()
+    from repro_torch.data.pipeline import SyntheticLMStream
+
+    class OneBatch(SyntheticLMStream):
+        def batch(self, step):
+            return super().batch(0)
+
+    one = OneBatch(get_arch(TRAIN_ARCH).model.vocab_size, TRAIN_BATCH,
+                   TRAIN_SEQ, seed=0)
+    lres, llaunches, lpeak = _train_run(TRAIN_STEPS, stream=one,
+                                        optimizer="lamb")
+    log(f"train features: optimizer=lamb, {TRAIN_STEPS} steps on the "
+        f"step-0 batch (bf16 compute): losses "
+        f"{['%.4f' % x for x in lres.losses]}, "
+        f"skipped {lres.nan_skips}, step time p50 "
+        f"{float(np.median(lres.step_times)) * 1e3:.1f} ms; peak device "
+        f"memory {lpeak / 2**30:.2f} GiB; launches {llaunches}")
+    check(len(lres.losses) == TRAIN_STEPS
+          and all(np.isfinite(lres.losses)) and lres.nan_skips == 0,
+          f"LAMB losses {lres.losses}, {lres.nan_skips} skipped")
+    check(lres.losses[-1] < lres.losses[0],
+          f"LAMB: last loss {lres.losses[-1]} not below the first "
+          f"{lres.losses[0]}")
 
 
 def _dir_bytes(path):
@@ -1964,7 +2136,8 @@ def main():
         phase(phase_ssm_parity)
         phase(phase_ssd_shards, worst)
         launches, counts = phase(phase_serve)
-        train_launches, train_losses = phase(phase_train)
+        train_launches, train_losses, train_peak = phase(phase_train)
+        phase(phase_train_features, train_losses, train_peak)
         phase(phase_train_restart, train_losses)
         ssm_launches = phase(phase_ssm_serve)
         # the backward timings check the forward at the train shape too,

@@ -124,21 +124,24 @@ _DTYPES = ("float32", "bfloat16", "float16")
 class RunConfig:
     """Run options of the serve and train slices, with the reference's
     defaults.  The reference's fields that the port does not run yet
-    (pipeline and sequence shards, the attention schedules), the optimizer
-    choice (AdamW only until LAMB is ported) and the attention chunk sizes
-    of its jnp path come back with the slices that use them (ROADMAP
-    Queue A); passing one is a TypeError rather than a setting that
-    silently does nothing."""
+    (pipeline and sequence shards, the attention schedules) and the
+    attention chunk sizes of its jnp path come back with the slices that
+    use them (ROADMAP Queue A); passing one is a TypeError rather than a
+    setting that silently does nothing."""
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     # Per-block activation checkpointing of the train loss: "none" keeps
     # every activation, "full" recomputes each block in the backward
-    # (torch.utils.checkpoint, the reference's jax.checkpoint).
-    remat: str = "full"          # none | full  ("dots" is not ported)
+    # (torch.utils.checkpoint, the reference's jax.checkpoint), "dots"
+    # keeps the block input and its projections' outputs and recomputes
+    # the rest (the reference's dots_with_no_batch_dims_saveable policy;
+    # models/transformer.py).
+    remat: str = "full"          # none | full | dots
     loss_chunk: int = 512        # tokens per cross-entropy chunk
     lr: float = 3e-4
     weight_decay: float = 0.1
     grad_clip: float = 1.0
+    optimizer: str = "adamw"     # adamw | lamb (optim/adamw.py)
     # Static loss scaling for low-precision compute: the loss is multiplied
     # by loss_scale before the backward and gradients are unscaled before
     # clipping and the optimizer.
@@ -183,12 +186,8 @@ class RunConfig:
         if self.compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {_DTYPES}, "
                              f"got {self.compute_dtype!r}")
-        if self.remat == "dots":
-            raise NotImplementedError(
-                "remat='dots' (save matmul outputs) is not supported by "
-                "repro_torch yet (ROADMAP Queue A, item A3)")
-        if self.remat not in ("none", "full"):
-            raise ValueError(f"remat must be 'none' or 'full', "
+        if self.remat not in ("none", "full", "dots"):
+            raise ValueError(f"remat must be 'none', 'full' or 'dots', "
                              f"got {self.remat!r}")
         if not self.loss_scale > 0:
             raise ValueError(f"loss_scale must be > 0, got {self.loss_scale}")
@@ -198,6 +197,9 @@ class RunConfig:
         if self.nan_skip_limit < 0:
             raise ValueError(f"nan_skip_limit must be >= 0, "
                              f"got {self.nan_skip_limit}")
+        if self.optimizer not in ("adamw", "lamb"):
+            raise ValueError(f"optimizer must be 'adamw' or 'lamb', "
+                             f"got {self.optimizer!r}")
         if self.attn_impl not in ("jnp", "pallas", "auto"):
             raise ValueError(f"attn_impl must be 'jnp', 'pallas' or 'auto', "
                              f"got {self.attn_impl!r}")

@@ -40,6 +40,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import collectives as col
+from . import remat
 from .api import ParallelContext
 from .mesh import Mesh
 from .summa import mm_f32, tesseract_matmul
@@ -209,13 +210,14 @@ class TesseractOps(_OpSet):
         return (("data", "depth"), ())
 
     # ---------------- core ops ----------------
-    def linear(self, x, w, b=None):
+    def linear(self, x, w, b=None, *, keep=True):
         """Tesseract C = x @ w (``core/summa.py``: kernel #1 on the fused
         schedule, kernel #2 on the ring), the weight in the reference's
         [in, out] layout; a bf16 product accumulates in fp32 and rounds
         once, as the reference's fp32-accumulated einsum cast back to x's
-        dtype does."""
-        y = tesseract_matmul(self.ctx, self.mesh, x, w)
+        dtype does.  ``keep``: whether remat="dots" keeps the product
+        (``core/remat.py``)."""
+        y = tesseract_matmul(self.ctx, self.mesh, x, w, keep=keep)
         if b is not None:
             y = y + b
         return y
@@ -239,12 +241,12 @@ class TesseractOps(_OpSet):
         """[.., F_loc] x [F_loc, G] -> psum(col) -> [.., G] replicated over
         col (small outputs every rank needs whole: replicated GQA KV heads
         when num_kv_heads % q != 0, the ssm mixer's B and C).  The local
-        product is no SUMMA contraction: ``torch.matmul`` accumulates in
+        product is no SUMMA contraction: ``local_matmul`` accumulates in
         fp32 and rounds once, as the reference's ``_f32_einsum(...,
         out_dtype=x.dtype)`` does.  The psum'd product is invariant over
         col and meets the col-varying q heads, so it is ``pvary``'d there
         (before the bias, which is a leaf of its own)."""
-        y = col.psum(self.mesh, torch.matmul(x, w), "col")
+        y = col.psum(self.mesh, local_matmul(x, w), "col")
         y = col.pvary(self.mesh, y, "col")
         if b is not None:
             y = y + b
@@ -409,10 +411,10 @@ class MegatronOps(_OpSet):
     vocab-sharded over col.  depth and row have size 1, so a reduction
     over the model axes is one over col.
 
-    Its products are ``torch.matmul``, fp32-accumulated and rounded once to
-    the activations' dtype, as the reference's ``_f32_einsum`` (a plain
-    einsum outside any Pallas kernel) is: no SUMMA contraction, so no
-    kernel #1.
+    Its products are ``local_matmul`` (``torch.mm``), fp32-accumulated
+    and rounded once to the activations' dtype, as the reference's
+    ``_f32_einsum`` (a plain einsum outside any Pallas kernel) is: no
+    SUMMA contraction, so no kernel #1.
 
     Gradients.  The residual stream is replicated over col, and each
     rank's cotangent of it is that rank's partial: the reductions into the
@@ -447,18 +449,18 @@ class MegatronOps(_OpSet):
         ``linear_up``: Megatron-SP projects the gathered sequence."""
         return torch.arange(t, device=device)
 
-    def linear_up(self, x, w, b=None):
+    def linear_up(self, x, w, b=None, *, keep=True):
         """Column-parallel: [.., F] x [F, G/p] -> [.., G/p]."""
-        y = torch.matmul(x, w)
+        y = local_matmul(x, w, keep=keep)
         if b is not None:
             y = y + b
         return y
 
-    def linear_down(self, h, w, b=None):
+    def linear_down(self, h, w, b=None, *, keep=True):
         """Row-parallel: [.., G/p] x [G/p, F] -> the partial sums
         all-reduced over the model axes (``psum_v``), or on the seq-sharded
         plan reduce-scattered over col along the sequence -> [.., F]."""
-        y = torch.matmul(h, w)
+        y = local_matmul(h, w, keep=keep)
         if self.plan.seq_sharded:
             y = col.psum_scatter_dim(self.mesh, y, self.ctx.axis_col, 1)
         else:
@@ -470,7 +472,7 @@ class MegatronOps(_OpSet):
     def linear_to_replicated(self, x, w, b=None):
         """[.., F] x [F, G] with the weight replicated: a local product
         (replicated GQA KV heads when num_kv_heads % p != 0)."""
-        y = torch.matmul(x, w)
+        y = local_matmul(x, w)
         if b is not None:
             y = y + b
         return y
@@ -584,6 +586,41 @@ class MegatronOps(_OpSet):
     def _head_features(self, x):
         """The head's rows [B_loc, h]: features whole already."""
         return x
+
+
+def _local_mm(a2, w):
+    return torch.mm(a2, w)
+
+
+class _LocalMatmul(torch.autograd.Function):
+    """C = A @ W on this rank's blocks with ``torch.matmul``'s backward (dA
+    = dC W^T, dW = A^T dC): its own node, so that remat="dots" keeps C in a
+    block's forward and hands it back in the recompute (``core/remat.py``),
+    as ``core/summa.py``'s SUMMA product does."""
+
+    @staticmethod
+    def forward(fctx, a2, w, keep):
+        fctx.save_for_backward(a2, w)
+        return remat.product(lambda: _local_mm(a2, w), keep)
+
+    @staticmethod
+    def backward(fctx, dc):
+        a2, w = fctx.saved_tensors
+        return torch.matmul(dc, w.t()), torch.matmul(a2.t(), dc), None
+
+
+def local_matmul(x, w, *, keep: bool = True):
+    """[.., F] x [F, G] -> [.., G] on this rank's blocks, no collective
+    (``torch.mm`` on the flattened rows: fp32-accumulated, rounded once to
+    x's dtype, the reference's ``_f32_einsum(..., out_dtype=x.dtype)``);
+    an autograd node only when a gradient is wanted."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        c = _LocalMatmul.apply(x2, w, keep)
+    else:
+        c = _local_mm(x2, w)
+    return c.reshape(*lead, w.shape[-1])
 
 
 class _HeadLogits(torch.autograd.Function):

@@ -53,6 +53,11 @@ not kernel #1's, so ``torch.mm`` forms them at the reference's precision
 (``mm_f32``): operands in the compute dtype summed in fp32, dA rounded
 once to dC's dtype, dW kept in fp32 (or bf16, above) until its
 reductions end.
+
+Under remat="dots" (``core/remat.py``) a block's forward keeps C and its
+recompute hands C back: no launch of #1 or #2, and of the fused
+schedule's gathers only those the backward keeps (``cache_*_gather``)
+are made again.
 """
 from __future__ import annotations
 
@@ -62,6 +67,7 @@ import torch
 
 from ..kernels.tesseract_mm import tesseract_mm, tesseract_mm_stream
 from . import collectives as col
+from . import remat
 from .api import ParallelContext
 from .mesh import Mesh
 
@@ -237,15 +243,23 @@ def _ring_bwd(mesh: Mesh, a2, w, dc, rs_dtype):
 class _TesseractMatmul(torch.autograd.Function):
 
     @staticmethod
-    def forward(fctx, ctx, mesh, a2, w):
+    def forward(fctx, ctx, mesh, a2, w, keep):
         fctx.ctx, fctx.mesh = ctx, mesh
         if mesh.size == 1 or effective_schedule(ctx, a2.shape[0]) == "ring":
             fctx.save_for_backward(a2, w)
-            return _forward(ctx, mesh, a2, w)
-        ag, wg = _gathers(mesh, a2, w)
+            return remat.product(lambda: _forward(ctx, mesh, a2, w), keep)
+        # fused across ranks: the backward keeps the gathers that
+        # cache_act_gather / cache_weight_gather name; a product replayed
+        # under remat="dots" gathers only those
+        replay = remat.replaying()
+        ag = (a2 if replay and not ctx.cache_act_gather
+              else col.all_gather_inv(mesh, a2, "col"))
+        wg = (w if replay and not ctx.cache_weight_gather
+              else col.all_gather_inv(mesh, w, "row"))
         fctx.save_for_backward(ag if ctx.cache_act_gather else a2,
                                wg if ctx.cache_weight_gather else w)
-        return tesseract_mm(ag, wg, out_dtype=a2.dtype)
+        return remat.product(
+            lambda: tesseract_mm(ag, wg, out_dtype=a2.dtype), keep)
 
     @staticmethod
     def backward(fctx, dc):
@@ -255,7 +269,7 @@ class _TesseractMatmul(torch.autograd.Function):
             dw = torch.matmul(ar.t(), dc)
             if ctx.dgrad_rs_bf16:    # the reference rounds it at one rank too
                 dw = dw.to(torch.bfloat16).to(wr.dtype)
-            return None, None, torch.matmul(dc, wr.t()), dw
+            return None, None, torch.matmul(dc, wr.t()), dw, None
         dc = dc.contiguous()
         if effective_schedule(ctx, dc.shape[0]) == "ring":
             da, dw = _ring_bwd(mesh, ar, wr, dc, _rs_dtype(ctx))
@@ -263,19 +277,22 @@ class _TesseractMatmul(torch.autograd.Function):
             da, dw = _fused_bwd(ctx, mesh, ar, wr, dc)
         if ctx.reduce_dgrad_in_op:
             dw = col.psum(mesh, dw, DGRAD_AXES)
-        return None, None, da, dw.to(wr.dtype)
+        return None, None, da, dw.to(wr.dtype), None
 
 
-def tesseract_matmul(ctx: ParallelContext, mesh: Mesh, a, w):
+def tesseract_matmul(ctx: ParallelContext, mesh: Mesh, a, w, *,
+                     keep: bool = True):
     """Distributed C = A @ W per Tesseract Algorithm 3 (local blocks; see
     the module doc) on ``mesh``, the schedule from ``ctx``.  Without
     autograd (serving) it skips the autograd node, whose host cost each of
-    a step's projections pays."""
+    a step's projections pays.  Under remat="dots" (``core/remat.py``) the
+    block's forward keeps C (only its shape with ``keep=False``) and the
+    recompute hands it back without a launch."""
     lead = a.shape[:-1]
     a2 = a.reshape(-1, a.shape[-1]).contiguous()
     w = w.contiguous()
     if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
-        c = _TesseractMatmul.apply(ctx, mesh, a2, w)
+        c = _TesseractMatmul.apply(ctx, mesh, a2, w, keep)
     else:
         c = _forward(ctx, mesh, a2, w)
     return c.reshape(*lead, w.shape[-1])

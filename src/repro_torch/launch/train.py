@@ -30,7 +30,9 @@ keeps its block.  Under ``torchrun`` (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``) every rank runs the same loop on the [data, depth, rows,
 cols] mesh, NCCL on the cards and gloo on the CPU; rank 0 prints the
 losses, grad norms, step time p50, tokens/s, the model-FLOPs share of the
-cards' bf16 peak and every rank's peak memory (``--out`` writes the
+cards' bf16 peak, every rank's peak memory, that of one more forward and
+backward without the optimizer state (the activations' share) and the
+caching allocator's retries (``--out`` writes the
 losses and grad norms as JSON), and with ``--profile-step`` one more
 step's device time under torch.profiler (its NCCL kernels and its GEMMs
 apart).  ``--ckpt DIR`` checkpoints every 50 steps and after the last
@@ -39,8 +41,16 @@ whatever layout wrote it); ``--fault-plan`` / ``--fault-seed`` inject the
 reference's faults at the train and ckpt sites (``runtime/faults.py``), and
 the summary then adds the ``resilience:`` line.  The reference's pipeline
 and sequence-shard flags raise (ROADMAP Queue A, item A3).  A caller of
-``main`` may pass the gradient wire formats as keywords
-(``grad_compression="bf16"``, ``dgrad_rs_bf16=True``).
+``main`` may pass the gradient wire formats (``grad_compression="bf16"``,
+``dgrad_rs_bf16=True``), the optimizer (``optimizer="lamb"``) and the
+activation checkpointing (``remat="none" | "full" | "dots"``, default
+"full") as keywords, as the reference's launcher has no flag for them:
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 --no-python \
+        python3 -c "import sys; from repro_torch.launch.train import main; \
+        main(sys.argv[1:], optimizer='lamb', remat='dots')" --arch yi-6b \
+        --rows 2 --cols 2 --steps 10 --seq 2048 --batch 8 \
+        --compute-dtype bfloat16
 """
 from __future__ import annotations
 
@@ -51,7 +61,8 @@ H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak of one H100 SXM
 
 
 def main(argv=None, *, grad_compression: str = "none",
-         dgrad_rs_bf16: bool = False):
+         dgrad_rs_bf16: bool = False, optimizer: str = "adamw",
+         remat: str = "full"):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)
@@ -129,9 +140,8 @@ def main(argv=None, *, grad_compression: str = "none",
 
     from ..configs.base import RunConfig, ShapeSpec
     from ..convert import load_params, params_from_jax, shard_params
-    from ..core import collectives as col
     from ..core.api import ParallelContext
-    from ..core.mesh import AXES, Mesh
+    from ..core.mesh import Mesh
     from ..kernels import ops as kops
     from ..models.registry import build_model, get_arch, get_reduced
     from ..runtime.train_loop import train
@@ -143,7 +153,8 @@ def main(argv=None, *, grad_compression: str = "none",
                     attn_impl=args.attn_impl, accum_steps=args.accum,
                     zero1=args.zero1, zero_stage=args.zero_stage,
                     fault_plan=args.fault_plan, fault_seed=args.fault_seed,
-                    grad_compression=grad_compression)
+                    grad_compression=grad_compression, optimizer=optimizer,
+                    remat=remat)
     ctx = ParallelContext(mode=args.mode, data=args.data, depth=args.depth,
                           rows=args.rows, cols=args.cols,
                           matmul_schedule=args.matmul_schedule,
@@ -167,12 +178,9 @@ def main(argv=None, *, grad_compression: str = "none",
     res = train(model, shape, steps=args.steps, log_every=10,
                 ckpt_dir=args.ckpt)
     launches = dict(kops.LAUNCHES)
-    peaks = None
+    mem = None
     if cuda:
-        torch.cuda.synchronize()
-        peak = torch.tensor([torch.cuda.max_memory_allocated() / 2**30],
-                            dtype=torch.float64, device=dev)
-        peaks = col.all_gather_inv(mesh, peak, AXES, tiled=True).tolist()
+        mem = _memory_per_rank(model, shape, mesh)
     if rank0:
         print(f"final loss {res.losses[-1]:.4f} after {len(res.losses)} "
               f"steps ({res.restarts} restarts)")
@@ -190,6 +198,7 @@ def main(argv=None, *, grad_compression: str = "none",
               f"rows={ctx.rows} cols={ctx.cols} "
               f"matmul_schedule={ctx.matmul_schedule} "
               f"zero1={run.zero_enabled} compute={run.compute_dtype} "
+              f"optimizer={run.optimizer} remat={run.remat} "
               f"grad_compression={run.grad_compression} "
               f"dgrad_rs_bf16={ctx.dgrad_rs_bf16}; "
               f"step p50 {p50 * 1e3:.1f} ms (first "
@@ -200,8 +209,9 @@ def main(argv=None, *, grad_compression: str = "none",
                  f"{mesh.size} x 989 TFLOP/s bf16 "
                  f"({torch.cuda.get_device_name(dev)})" if cuda else "")
               + f"; launches per rank {launches}"
-              + (f"; peak device memory per rank GiB "
-                 f"{[round(p, 2) for p in peaks]}" if peaks else ""),
+              + (f"; peak device memory per rank GiB {mem[0]}, of one "
+                 f"forward and backward (no optimizer state) {mem[1]}; "
+                 f"allocator retries per rank {mem[2]}" if mem else ""),
               flush=True)
         if args.out:
             with open(args.out, "w") as f:
@@ -212,6 +222,36 @@ def main(argv=None, *, grad_compression: str = "none",
         if rank0:
             print(json.dumps(profile), flush=True)
     return res
+
+
+def _memory_per_rank(model, shape, mesh):
+    """Every rank's (peak device memory of the run GiB, the peak of one more
+    forward and backward after it GiB, with the optimizer state freed and
+    the gradients cleared: the activations' share; the caching
+    allocator's retries in the run), each as a list over the ranks."""
+    import torch
+
+    from ..core import collectives as col
+    from ..core.mesh import AXES
+    from ..data.pipeline import SyntheticLMStream
+    torch.cuda.synchronize()
+    run_peak = torch.cuda.max_memory_allocated() / 2**30
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    stream = SyntheticLMStream(model.cfg.vocab_size, shape.global_batch,
+                               shape.seq_len, seed=0)
+    batch = {k: torch.from_numpy(v).to(model.device)
+             for k, v in stream.batch(0).items()}
+    model.zero_grad(set_to_none=True)
+    torch.cuda.reset_peak_memory_stats()
+    model.loss(batch).backward()
+    torch.cuda.synchronize()
+    fb_peak = torch.cuda.max_memory_allocated() / 2**30
+    model.zero_grad(set_to_none=True)
+    got = col.all_gather_inv(mesh, torch.tensor(
+        [[run_peak, fb_peak, float(retries)]], dtype=torch.float64,
+        device=model.device), AXES, tiled=True).tolist()
+    return ([round(r[0], 2) for r in got], [round(r[1], 2) for r in got],
+            [int(r[2]) for r in got])
 
 
 def train_flops(model, shape) -> float:
@@ -277,7 +317,8 @@ def _profile_step(model, shape, rank0):
     nccl = sum(ms for k, ms, _ in kernels if "nccl" in k.lower())
     return {"profile": f"train step on rank 0, {model.cfg.name} seq "
                        f"{shape.seq_len} x batch {shape.global_batch}, "
-                       f"{model.ctx.mode}",
+                       f"{model.ctx.mode}, {model.run.optimizer}, remat "
+                       f"{model.run.remat}",
             "wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": (1.0 - busy / wall_ms) if busy else None,
             "nccl_ms": nccl,

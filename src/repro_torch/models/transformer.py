@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig, RunConfig, round_up
 from ..core import collectives as col
+from ..core import remat
 from ..core.api import ParallelContext
 from ..core.mesh import Mesh, local_block
 from ..core.ops import Plan, kv_group_axes, make_ops
@@ -267,8 +268,10 @@ class DenseLM(nn.Module):
             h = act(g) * u
         else:
             h = act(ops.linear_up(x, self._w(blk.w_up), b_up))
+        # remat="dots" does not keep the down projection: only the residual
+        # add reads it, and its backward reads no operand
         return ops.linear_down(h, self._w(blk.w_down),
-                               getattr(blk, "b_down", None))
+                               getattr(blk, "b_down", None), keep=False)
 
     def _final(self, ops, x):
         return self._norm(ops, x, self.ln_f, getattr(self, "ln_fb", None))
@@ -340,7 +343,17 @@ class DenseLM(nn.Module):
         [B, S] int, optional "mask": [B, S]}, host layout, the same on every
         rank: embed, the blocks at positions 0..S-1, the final norm and the
         chunked CE over the compute-dtype head, loss_sum / max(count, 1).
-        With remat="full" each block is recomputed in the backward.  Across
+
+        What the backward keeps of each block (``run.remat``, the
+        reference's ``maybe_remat``): "none", every activation autograd
+        saves; "full", only the block input, the whole block recomputed
+        in the backward (``torch.utils.checkpoint``); "dots", the block
+        input and the outputs of its products but the last (q, k, v, the
+        attention output projection, gate and up: seven tensors per layer,
+        six without a GLU, the reference's
+        ``dots_with_no_batch_dims_saveable`` set), the norms, rope,
+        attention (kernel #3 runs again) and activations recomputed and the
+        products handed back without a launch (``core/remat.py``).  Across
         ranks each rank cuts its (data, depth) block of the batch (the
         reference's ``spec_tokens_in``; embed and the loss apply the row
         factor) and the sums are psum'd over data, so the loss is the same
@@ -356,6 +369,9 @@ class DenseLM(nn.Module):
         for blk in self.blocks:
             if self.run.remat == "full":
                 x = checkpoint(block, blk, x, use_reentrant=False)
+            elif self.run.remat == "dots":
+                x = checkpoint(block, blk, x, use_reentrant=False,
+                               context_fn=remat.dots_contexts)
             else:
                 x = block(blk, x)
         x = self._final(ops, x)

@@ -11,8 +11,9 @@ rank, so:
   (``build_train_step`` and ``zero_optimizer_step``): loss scaling,
   microbatch accumulation, the deferred gradient sync of replicated
   leaves, unscale, the layout-aware global grad-norm clip, the cosine
-  learning rate, AdamW (replicated, or ZeRO-1 on state slices) and the
-  non-finite update guard.  It updates the model's parameters and the
+  learning rate, AdamW (replicated, or ZeRO-1 on state slices) or LAMB
+  (replicated: the reference refuses it with ZeRO-1) and the non-finite
+  update guard.  It updates the model's parameters and the
   optimizer state in place.
 
 Gradient sync.  The reference puts ``grad_sync`` on every param leaf in its
@@ -27,13 +28,15 @@ psum to the reduce-scatter onto the state slice.
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from ..core import collectives as col
 from ..core.mesh import AXES
 from ..optim import zero
-from ..optim.adamw import adamw_init, adamw_update, cosine_lr
+from ..optim.adamw import adamw_init, adamw_update, cosine_lr, lamb_update
 
 # Elements per all-reduce of a gradient bucket.
 BUCKET_NUMEL = 1 << 25
@@ -91,7 +94,8 @@ def leaf_layouts(model):
 
 
 def init_opt_state(model) -> dict:
-    """The AdamW state ``build_train_step``'s step takes: per leaf (the
+    """The optimizer state ``build_train_step``'s step takes (AdamW's and
+    LAMB's are the same): per leaf (the
     order of ``model.parameters()``) fp32 m and v of the leaf's shape, or
     of its [k] slice under ZeRO-1, and the fp32 master copy (slice) when
     the params are low precision."""
@@ -148,11 +152,13 @@ def build_train_step(model, shape, *, accum_steps: int = 1,
       gradients, so only one microbatch's activations are live);
     - the gradient sync of replicated leaves (``sync_grads``);
     - the unscale, the global grad-norm clip at ``run.grad_clip`` and the
-      AdamW update at ``cosine_lr(step, base_lr=run.lr, warmup=100,
-      total=10000)``; across ranks the norm is layout-aware (each leaf's
-      sum of squares divided by its replication factor, then psum'd over
-      the mesh), and under ZeRO-1 the clip and the update run on the state
-      slices (``zero_optimizer_step``);
+      update of ``run.optimizer`` (AdamW, or LAMB with its trust ratios
+      per reference leaf, ``lamb_update_fn``) at ``cosine_lr(step,
+      base_lr=run.lr, warmup=100, total=10000)``; across ranks the norm is
+      layout-aware (each leaf's sum of squares divided by its replication
+      factor, then psum'd over the mesh), and under ZeRO-1 the clip and
+      the AdamW update run on the state slices (``zero_optimizer_step``;
+      LAMB with ZeRO-1 raises, as the reference does);
     - the non-finite guard: when the loss or the grad norm is not finite
       on any rank the update is not applied, so params and optimizer state
       stay bit-identical and ``metrics["skipped"]`` reads 1.
@@ -175,6 +181,10 @@ def build_train_step(model, shape, *, accum_steps: int = 1,
             f"{type(model).__name__} has no loss: ssm training is not "
             f"ported yet (ROADMAP Queue A, item A3: ssm training; the "
             f"reference has no backward for ssd_intra)")
+    if run.optimizer == "lamb" and run.zero_enabled:
+        raise NotImplementedError(
+            "optimizer='lamb' with ZeRO-1 is not wired: the trust ratios "
+            "need unsharded per-leaf norms")
     if shape.kind != "train":
         raise ValueError(f"build_train_step needs a train shape, got "
                          f"{shape.kind!r}")
@@ -187,6 +197,8 @@ def build_train_step(model, shape, *, accum_steps: int = 1,
     params = list(model.parameters())
     leaves = leaf_layouts(model) if mesh.size > 1 or run.zero_enabled \
         else None
+    update = (lamb_update_fn(model, leaves) if run.optimizer == "lamb"
+              else adamw_update)
 
     def step(opt_state, batch):
         batch = dict(batch)
@@ -227,14 +239,39 @@ def build_train_step(model, shape, *, accum_steps: int = 1,
             if finite:
                 scale = torch.clamp(run.grad_clip / (gnorm + 1e-6), max=1.0)
                 torch._foreach_mul_(grads, scale)
-                adamw_update(params, grads, opt_state, lr=lr,
-                             weight_decay=run.weight_decay)
+                update(params, grads, opt_state, lr=lr,
+                       weight_decay=run.weight_decay)
         for p in params:
             p.grad = None
         return {"loss": float(loss), "grad_norm": float(gnorm),
                 "lr": float(lr), "skipped": 0.0 if finite else 1.0}
 
     return step
+
+
+def lamb_update_fn(model, leaves):
+    """``lamb_update`` for ``model``'s parameters: each leaf grouped with
+    the other layers' copies of its block param (one stacked reference
+    leaf, ``blocks.<name>``; every top-level param its own), and across
+    ranks (``leaves``, from ``leaf_layouts``) the [2, n_groups] float64
+    sums of squares divided by each group's replication factor and psum'd
+    over the mesh in one all-reduce."""
+    keys = {}
+    groups = [keys.setdefault(
+        "blocks." + name.rsplit(".", 1)[-1] if name.startswith("blocks.")
+        else name, len(keys)) for name, _ in model.named_parameters()]
+    if leaves is None:
+        return partial(lamb_update, leaf_groups=groups)
+    mesh = model.mesh
+    rep = [1.0] * len(keys)
+    for g, leaf in zip(groups, leaves):
+        rep[g] = float(mesh.axis_size(replicated_axes(leaf[0])))
+    rep = torch.tensor(rep, dtype=torch.float64, device=model.device)
+
+    def norm_fn(sq):
+        return col.psum(mesh, sq / rep, AXES)
+
+    return partial(lamb_update, leaf_groups=groups, norm_fn=norm_fn)
 
 
 def _global_norm(mesh, grads, leaves):

@@ -57,7 +57,13 @@ or on ``--layout data,1,1,cols``.  Checks:
   block).  fp32; bounds in ``TRAIN_TOL``.  The bf16 wire formats, on
   both schedules (``grad_compression`` where data x depth > 1,
   ``dgrad_rs_bf16`` where q > 1): the loss, every gradient leaf within
-  ``WIRE_HOPS_TOL`` of its max, and ZeRO-1's 2 steps;
+  ``WIRE_HOPS_TOL`` of its max, and ZeRO-1's 2 steps.  The train features
+  (``_feature_grid``, yi-6b, on a mesh without data or depth replicas:
+  [2, 2, 1], or Megatron's cols = the world): remat="dots" on each
+  schedule (the loss and
+  every gradient leaf, and on the card each product's kernel launched once
+  in the forward and never in the recompute), LAMB (2 steps against the
+  one-rank LAMB step), and LAMB with ZeRO-1 refused on every rank;
 - ``train_restart``: ``runtime/train_loop.train`` on the mesh through a
   NaN step, a damaged checkpoint and a crash (fused), and a NaN step and a
   crash without checkpoints (ring): each step's loss equals the
@@ -900,6 +906,101 @@ def _check_wire_formats(mesh, dev, cfg, run, case, shape, batch, want_loss,
     return worst
 
 
+def _feature_grid(ctx):
+    """(schedule, remat, optimizer) per train-feature run: remat="dots" on
+    the fused and the ring schedule (Megatron: its one run), LAMB on the
+    fused one."""
+    if ctx.mode == "megatron1d":
+        return [("fused", "dots", "adamw"), ("fused", "full", "lamb")]
+    return [("fused", "dots", "adamw"), ("ring", "dots", "adamw"),
+            ("fused", "full", "lamb")]
+
+
+def _check_train_features(mesh, dev, cfg, run, case, shape, batch, want_loss,
+                          want_grads, tol):
+    """remat="dots" and LAMB on the mesh against the one-rank port.  A dots
+    run: the loss and every synced gradient leaf within ``tol`` (one rank's
+    are the same under any remat), and on the card the schedule's SUMMA
+    kernel launched once per product of the forward (#1 on fused, q x #2
+    on the ring) and never in the recompute.  A LAMB run: 2 steps' losses,
+    grad norms and params against 2 steps of the one-rank port's LAMB.
+    Then LAMB with ZeRO-1 must be refused on every rank, as the reference
+    refuses it.  Returns (the worst error as a share of max, the runs)."""
+    worst = 0.0
+    lrun = dataclasses.replace(run, optimizer="lamb")
+    one = build_model(cfg, ParallelContext(attn_impl="auto"), lrun,
+                      device=dev, seed=0)
+    want_metrics, _ = _two_steps(one, shape, cfg, case, dev)
+    want_params = params_to_numpy(one)
+    del one
+    for sched, remat, opt in _feature_grid(mesh.ctx):
+        t1 = time.perf_counter()
+        what = f"{case['arch']} {sched} remat={remat} optimizer={opt}"
+        ctx = mesh.ctx.replace(matmul_schedule=sched, attn_impl="auto")
+        frun = dataclasses.replace(run, remat=remat, optimizer=opt)
+        model = build_model(cfg, ctx, frun, device=dev, seed=0, mesh=mesh)
+        if opt == "lamb":
+            metrics, _ = _two_steps(model, shape, cfg, case, dev)
+            params = unshard_params(_gather_tree(mesh, dev,
+                                                 params_to_numpy(model)),
+                                    cfg, ctx)
+            bad = _param_err(params, want_params, tol["param"],
+                             tol["step"] * LR_SUM)
+            err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                      for a, b in zip(metrics, want_metrics)
+                      for k in ("loss", "grad_norm"))
+            _agree(mesh, dev, not bad and err <= tol["param"],
+                   f"{what}: after 2 steps, loss / grad norm off by "
+                   f"{err:.3g} of one rank's LAMB, params over: {bad}")
+            worst = max([worst, err]
+                        + list(_tree_err(params, want_params).values()))
+            log(mesh, f"    {what}: 2 steps within {err:.3g} of one rank's "
+                      f"LAMB; {time.perf_counter() - t1:.1f} s")
+            del model
+            continue
+        kops.reset_launches()
+        loss = model.loss(batch)
+        n_fwd = dict(kops.LAUNCHES)
+        loss.backward()
+        n_all = dict(kops.LAUNCHES)
+        grads = [p.grad for p in model.parameters()]
+        sync_grads(mesh, grads, [leaf[1] for leaf in leaf_layouts(model)])
+        d_loss = abs(float(loss.detach()) - want_loss)
+        g_err = _tree_err(unshard_params(
+            _gather_tree(mesh, dev, grads_to_numpy(model)), cfg, ctx),
+            want_grads)
+        bad = {k: v for k, v in g_err.items() if v > tol["grad"]}
+        _agree(mesh, dev, d_loss <= tol["loss"] and not bad,
+               f"{what}: loss off by {d_loss:.3g}, gradient leaves over "
+               f"{tol['grad']}: {bad}")
+        if dev.type == "cuda" and ctx.mode != "megatron1d":
+            kernel, per = (("tesseract_mm_stream", ctx.cols) if sched == "ring"
+                           else ("tesseract_mm", 1))
+            want_n = 7 * cfg.num_layers * per
+            _agree(mesh, dev, n_fwd[kernel] == n_all[kernel] == want_n,
+                   f"{what}: {kernel} launched {n_fwd[kernel]} times in the "
+                   f"forward and {n_all[kernel]} in all, want {want_n} and "
+                   f"none in the recompute")
+        worst = max([worst, d_loss] + list(g_err.values()))
+        launched = {k: (n_fwd[k], n) for k, n in n_all.items() if n}
+        log(mesh, f"    {what}: loss off by {d_loss:.3g}, gradients within "
+                  f"{max(g_err.values()):.3g} of max; launches (forward, "
+                  f"in all) {launched}; {time.perf_counter() - t1:.1f} s")
+        del model
+    zrun = dataclasses.replace(lrun, zero1=True)
+    zmodel = build_model(cfg, mesh.ctx.replace(attn_impl="auto"), zrun,
+                         device=dev, seed=0, mesh=mesh)
+    try:
+        build_train_step(zmodel, shape)
+        refused = False
+    except NotImplementedError as e:
+        refused = "trust ratios need unsharded per-leaf norms" in str(e)
+    _agree(mesh, dev, refused, "optimizer='lamb' with ZeRO-1 was not "
+                               "refused as the reference refuses it")
+    del zmodel
+    return worst, len(_feature_grid(mesh.ctx))
+
+
 def _gather_tree(mesh: Mesh, dev, tree):
     """Every rank's tree of numpy leaves, in rank order, on every rank."""
     def rec(t):
@@ -948,7 +1049,8 @@ def _two_steps(model, shape, cfg, case, dev):
 
 def check_train_parity(mesh: Mesh, dev, args):
     tol = TRAIN_TOL[dev.type]
-    worst = dict(loss=0.0, grad=0.0, param=0.0, zero1=0.0, wire=0.0)
+    worst = dict(loss=0.0, grad=0.0, param=0.0, zero1=0.0, wire=0.0,
+                 features=0.0)
     n_runs = 0
     for case in _train_cases(dev, mesh.ctx):
         t0 = time.perf_counter()
@@ -972,6 +1074,12 @@ def check_train_parity(mesh: Mesh, dev, args):
             worst["wire"] = _check_wire_formats(
                 mesh, dev, cfg, run, case, shape, batch, want_loss,
                 want_grads, want_metrics, tol)
+        if (case["arch"] == "yi-6b" and "model" not in case
+                and mesh.ctx.data * mesh.ctx.depth == 1):
+            worst["features"], runs = _check_train_features(
+                mesh, dev, cfg, run, case, shape, batch, want_loss,
+                want_grads, tol)
+            n_runs += runs
         grid = case.get("grid") or _train_grid(dev, mesh.ctx)
         for k, (sched, inop, flip, zero1) in enumerate(grid):
             t1 = time.perf_counter()
@@ -1061,7 +1169,8 @@ def check_train_parity(mesh: Mesh, dev, args):
               f"worst: loss {worst['loss']:.3g}, grad {worst['grad']:.3g}, "
               f"param {worst['param']:.3g} of max, ZeRO-1 "
               f"{worst['zero1']:.3g}, bf16 wire formats "
-              f"{worst['wire']:.3g} of their bound)")
+              f"{worst['wire']:.3g} of their bound, remat dots and LAMB "
+              f"{worst['features']:.3g} of max)")
 
 
 def _param_err(got, want, rel, atol):

@@ -9,34 +9,26 @@ the tile range is ``kernels/flash_attention.py::flash_kv_tiles``.  Here:
 
 (a) every KV tile outside that range is fully masked for every row of the
     q tile (``_scores`` gives NEG_INF there), so skipping it is exact;
-(b) with q_pos = q_start + arange the range is the reference's
-    ``_kv_bounds`` at 64-row tiles;
 (c) an emulation of the kernel's arithmetic (the online softmax over each
     q tile's walked tiles only, P cut into hi, mid and lo bf16 parts,
     bf16 inputs and output) stays within ``chip_smoke.py``'s bf16
     tolerance of the JAX reference's fp32 forward (interpret mode), and
-    within 2e-5 of it before the output's rounding;
-(d) the same for dQ: the walked tiles only, P = exp(S - lse) exactly 0
-    where masked, dS = P o (dP - delta) cut into hi + lo bf16 parts,
-    against the reference's ``flash_dq_step`` (interpret mode) on the
-    reference forward's lse and delta.
+    within 2e-5 of it before the output's rounding.
+
+(b), the tile range against the reference's ``_kv_bounds``, and (d), the
+dQ route's emulation, are in ``tests/test_torch_flash_dq_tiles.py``.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.flash_attention import (FlashCfg, _kv_bounds,
-                                          flash_dq_step, flash_fwd_step)
-from repro_torch.kernels.flash_attention import (FWD_TILE, M_FLOOR, NEG_INF,
-                                                 _scores, flash_kv_tiles)
+from repro.kernels.flash_attention import flash_fwd_step
+from repro_torch.kernels.flash_attention import (M_FLOOR, NEG_INF, _scores,
+                                                 flash_kv_tiles)
 
 BF16_OUT_TOL, LSE_TOL = 1e-2, 1e-3   # chip_smoke.py's _tols(bfloat16)
 SPLIT_TOL = 2e-5                     # |unrounded output - reference|
-BF16_GRAD_TOL = 1e-2                 # chip_smoke.py's _bwd_tol(bfloat16),
-                                     # times max |dq|
-DQ_SPLIT_TOL = 1e-5                  # |unrounded dq - reference|, times
-                                     # max |dq|
 
 
 def _positions(kind, Tq, rng):
@@ -75,22 +67,6 @@ def test_skipped_tiles_are_fully_masked(kind, causal, window, tile):
         walked += hi - lo
     if kind != "random":   # random positions span every tile's columns
         assert walked < len(tiles) * -(-Tk // tile)
-
-
-@pytest.mark.parametrize("q_start,Tq,window", [(0, 2048, 0), (0, 1000, 256),
-                                               (37, 70, 0), (37, 1000, 100),
-                                               (128, 300, 64), (0, 500, 0)])
-def test_tile_range_is_kv_bounds(q_start, Tq, window):
-    """(b) positions q_start + arange give the reference's _kv_bounds at
-    bq = bk = 64 from the positions alone."""
-    Tk = q_start + Tq
-    nq, nk = -(-Tq // FWD_TILE), -(-Tk // FWD_TILE)
-    cfg = FlashCfg(causal=True, window=window, scale=1.0, g=1, bq=FWD_TILE,
-                   bk=FWD_TILE, nq=nq, nk=nk, q_start=q_start, tk_real=Tk,
-                   interpret=True)
-    want = [tuple(int(x) for x in _kv_bounds(cfg, i)) for i in range(nq)]
-    q_pos = q_start + np.arange(Tq, dtype=np.int32)
-    assert flash_kv_tiles(q_pos, Tk, FWD_TILE, FWD_TILE, window=window) == want
 
 
 def _bf16(rng, *shape):
@@ -174,80 +150,3 @@ def test_split_p_emulation_matches_reference(q_start, window, kind):
     dead = (pos < 0).numpy()
     assert np.all(out.numpy()[:, :, dead] == 0.0)
     assert np.all(lse.numpy()[:, :, dead] == np.float32(M_FLOOR))
-
-
-def _split2(x):
-    """x cut into hi = bf16(x) and lo = bf16(x - hi), as mma.cuh's
-    split_bf16x2 does (round to nearest even)."""
-    hi = x.bfloat16().float()
-    return hi, (x - hi).bfloat16().float()
-
-
-def _emulate_dq(q, k, v, dout, lse, delta, q_pos, *, causal, window, tile):
-    """The bf16 dQ route's arithmetic in fp32 on the CPU: per q tile, the
-    walked tiles of flash_kv_tiles only; P = exp(S - lse), exactly 0 where
-    masked; dS = P o (dO.V^T - delta); dQ += lo.K + hi.K; dQ times the
-    scale once at the end.  Returns dq before rounding."""
-    B, Hq, Tq, D = q.shape
-    Hkv, Tk = k.shape[1], k.shape[2]
-    g = Hq // Hkv
-    s_all = _scores(q, k, causal=causal, local_window=window, q_pos=q_pos,
-                    q_start=None, softmax_scale=None)    # [B, Hkv, g, Tq, Tk]
-    dp_all = torch.einsum("bhgqd,bhkd->bhgqk",
-                          dout.reshape(B, Hkv, g, Tq, D), v)
-    lse5 = lse.reshape(B, Hkv, g, Tq, 1)
-    delta5 = delta.reshape(B, Hkv, g, Tq, 1)
-    kf = k[:, :, None]                                    # [B, Hkv, 1, Tk, D]
-    dq = torch.zeros(B, Hkv, g, Tq, D)
-    for i, (lo, hi) in enumerate(flash_kv_tiles(q_pos, Tk, tile, tile, causal,
-                                                window)):
-        r = slice(i * tile, (i + 1) * tile)
-        acc = torch.zeros_like(dq[..., r, :])
-        for j in range(lo, hi):
-            c = slice(j * tile, (j + 1) * tile)
-            s = s_all[..., r, c]
-            p = torch.where(s == NEG_INF, torch.zeros_like(s),
-                            torch.exp(s - lse5[..., r, :]))
-            ds = p * (dp_all[..., r, c] - delta5[..., r, :])
-            for part in reversed(_split2(ds)):
-                acc = acc + part @ kf[..., c, :]
-        dq[..., r, :] = acc
-    return dq.reshape(B, Hq, Tq, D) / D ** 0.5
-
-
-@pytest.mark.parametrize("q_start,window,kind", [(0, 0, None),
-                                                 (0, 20, None),
-                                                 (None, 12, "arange"),
-                                                 (None, 0, "arange+5"),
-                                                 (None, 0, "arange-20"),
-                                                 (None, 16, "arange-20")])
-def test_split_ds_emulation_matches_reference(q_start, window, kind):
-    """(d) the dQ kernel's walk and cut dS, emulated, against the
-    reference's fp32 dQ on bf16-valued inputs and the reference forward's
-    lse and delta: within DQ_SPLIT_TOL of max |dq| before rounding and the
-    chip's bf16 tolerance after; rows that see no key are exact zeros."""
-    rng = np.random.default_rng(11 + window)
-    Hq, Hkv, T, D, tile = 4, 2, 48, 16, 16
-    q, k, v, dout = (_bf16(rng, 1, h, T, D) for h in (Hq, Hkv, Hkv, Hq))
-    q_pos = None if kind is None else torch.from_numpy(
-        np.arange(T, dtype=np.int32)
-        + {"arange": 0, "arange+5": 5, "arange-20": -20}[kind])
-    kw = dict(causal=True, local_window=window,
-              q_pos=None if q_pos is None else jnp.asarray(q_pos.numpy()),
-              q_start=q_start, bq=tile, bk=tile, interpret=True)
-    jq, jk, jv, jdo = (jnp.asarray(x.numpy()) for x in (q, k, v, dout))
-    out, lse = flash_fwd_step(jq, jk, jv, **kw)
-    delta = jnp.sum(jdo * out, axis=-1)
-    want = np.asarray(flash_dq_step(jq, jk, jv, jdo, lse, delta, **kw))
-    pos = q_pos if q_pos is not None else torch.arange(T, dtype=torch.int32)
-    dq = _emulate_dq(q, k, v, dout, torch.tensor(np.asarray(lse)),
-                     torch.tensor(np.asarray(delta)), pos, causal=True,
-                     window=window, tile=tile)
-    scale = float(np.abs(want).max())
-    np.testing.assert_allclose(dq.numpy(), want, rtol=0,
-                               atol=DQ_SPLIT_TOL * scale)
-    np.testing.assert_allclose(dq.bfloat16().float().numpy(), want, rtol=0,
-                               atol=BF16_GRAD_TOL * scale)
-    dead = (pos < 0).numpy()
-    assert dead.any() == (kind == "arange-20")
-    assert np.all(dq.numpy()[:, :, dead] == 0.0)

@@ -41,6 +41,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs.base import RunConfig as RefRun
 from repro.core.api import ParallelContext as RefCtx
@@ -60,6 +61,10 @@ from repro_torch.runtime.steps import leaf_layouts
 from repro_torch.testing.mdchecks import _new_tokens, _prompts
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# The rank processes run at a lower CPU priority (nice 5): the suite's
+# longest file, tests/test_multidevice.py, runs beside them and sets
+# its wall time.
+NICE = ("nice", "-n", "5")
 ENGINE = dict(n_slots=4, block_size=4, max_seq_len=64)
 CASES = [
     dict(name="kv2", params="kv2", num_blocks=64),
@@ -110,6 +115,18 @@ main()
 (out / "ref.json").write_text(json.dumps(
     {"ids": [res[r.rid] for r in reqs], "losses": losses}))
 """
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's torch ops run on one thread: the suite's xdist workers
+    share the machine's cores, and torch's default of a thread per core in
+    every worker oversubscribes them (a test file then burns several times
+    its CPU time spinning, beside the suite's longest file)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _ref_tree(cfg, ctx):
@@ -166,8 +183,8 @@ def runs(tmp_path_factory):
     env.pop("XLA_FLAGS", None)
 
     def torchrun(n, *args):
-        return [sys.executable, "-m", "torch.distributed.run", "--standalone",
-                f"--nproc-per-node={n}", "-m", *args]
+        return [*NICE, sys.executable, "-m", "torch.distributed.run",
+                "--standalone", f"--nproc-per-node={n}", "-m", *args]
 
     cmds = {
         "dp1": torchrun(4, "repro_torch.testing.mdchecks", *CHECKS,
@@ -182,7 +199,7 @@ def runs(tmp_path_factory):
                              "--device", "cpu", "--params",
                              str(tmp / "kv2.npz"), "--out",
                              str(tmp / "train.json")),
-        "ref": [sys.executable, "-c", REF_SCRIPT, str(tmp),
+        "ref": [*NICE, sys.executable, "-c", REF_SCRIPT, str(tmp),
                 json.dumps(ENGINE), *TRAIN],
     }
     ref_env = dict(env, JAX_PLATFORMS="cpu",

@@ -175,10 +175,12 @@ def test_attn_impl_resolution():
 def test_unported_features_raise():
     with pytest.raises(TypeError):             # pipeline knobs: not copied
         RunConfig(pipe_stages=2)
-    with pytest.raises(TypeError):             # AdamW only; LAMB comes in A3
-        RunConfig(optimizer="lamb")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RunConfig(remat="dots")
+    # LAMB and remat="dots" are ported; the optimizer is validated as the
+    # reference validates it
+    assert RunConfig(optimizer="lamb").optimizer == "lamb"
+    assert RunConfig(remat="dots").remat == "dots"
+    with pytest.raises(ValueError, match="optimizer"):
+        RunConfig(optimizer="sgd")
     cfg = get_reduced("yi-6b").model
     model = build_model(cfg, ParallelContext(),
                         RunConfig(param_dtype="float32",

@@ -22,6 +22,7 @@ import time
 import jax
 import numpy as np
 import pytest
+import torch
 
 import repro.runtime.train_loop as ref_loop
 from repro.configs.base import RunConfig as RefRun, ShapeSpec
@@ -41,6 +42,18 @@ from repro_torch.runtime.train_loop import train
 SHAPE = ShapeSpec("t", seq_len=16, global_batch=4, kind="train")
 STEPS = 8
 REL = 1e-5
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's torch ops run on one thread: the suite's xdist workers
+    share the machine's cores, and torch's default of a thread per core in
+    every worker oversubscribes them (a test file then burns several times
+    its CPU time spinning, beside the suite's longest file)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 class _FailingStream(SyntheticLMStream):

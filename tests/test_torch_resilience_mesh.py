@@ -26,6 +26,10 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# The rank processes run at a lower CPU priority (nice 5): the suite's
+# longest file, tests/test_multidevice.py, runs beside them and sets
+# its wall time.
+NICE = ("nice", "-n", "5")
 # check: (ranks, data,depth,rows,cols)
 SPAWNS = {"train_restart": (4, "1,1,2,2"), "zero1_elastic": (4, "2,2,1,1")}
 SPAWN_TIMEOUT_S = 300
@@ -35,7 +39,7 @@ SPAWN_TIMEOUT_S = 300
 def spawns():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     procs = {name: subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+        [*NICE, sys.executable, "-m", "torch.distributed.run", "--standalone",
          f"--nproc-per-node={n}", "-m", "repro_torch.testing.mdchecks",
          name, "--device", "cpu", "--layout", layout],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -49,6 +49,18 @@ B, T, STEPS = 2, 20, 3          # T = 20 with chunk 8 shrinks Q to 5
 NO_EXCESS = {"xla_allow_excess_precision": False}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's torch ops run on one thread: the suite's xdist workers
+    share the machine's cores, and torch's default of a thread per core in
+    every worker oversubscribes them (a test file then burns several times
+    its CPU time spinning, beside the suite's longest file)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ssd_inputs(rng, Bsz, nc, Q, H, P, N, steep):
     """x, log_a (about -0.01 or -5: the decay underflows far from the
     diagonal), B, C as float32 numpy arrays."""

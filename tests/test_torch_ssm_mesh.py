@@ -56,6 +56,10 @@ from repro_torch.models.ssm import ssm_param_specs
 from repro_torch.testing.mdchecks import ssm_tokens
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# The rank processes run at a lower CPU priority (nice 5): the suite's
+# longest file, tests/test_multidevice.py, runs beside them and sets
+# its wall time.
+NICE = ("nice", "-n", "5")
 ARCH = "mamba2-1.3b"
 STEPS = 4
 SPAWN_TIMEOUT_S = 300
@@ -130,8 +134,9 @@ def runs(tmp_path_factory):
                  params=str(tmp / "params.npz"))
             for c, s, b, t, p in cases]))
         procs[name] = subprocess.Popen(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             f"--nproc-per-node={n}", "-m", "repro_torch.testing.mdchecks",
+            [*NICE, sys.executable, "-m", "torch.distributed.run",
+             "--standalone", f"--nproc-per-node={n}", "-m",
+             "repro_torch.testing.mdchecks",
              "ssm_serve", "--device", "cpu", "--layout", layout,
              "--cases", str(tmp / f"{name}.json"),
              "--out", str(tmp / f"{name}_out.json")],

@@ -41,6 +41,18 @@ from repro_torch.runtime.train_loop import train
 REL = 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's torch ops run on one thread: the suite's xdist workers
+    share the machine's cores, and torch's default of a thread per core in
+    every worker oversubscribes them (a test file then burns several times
+    its CPU time spinning, beside the suite's longest file)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ref_model(arch, **run_kw):
     ctx = RefCtx(mode="tesseract", attn_impl="jnp")
     run = RefRun(param_dtype="float32", compute_dtype="float32",
