@@ -95,13 +95,31 @@ non-zero and prints no result:
    kernels' launches exact for the 15 step executions (launch counters
    zeroed just before); the free disk space, the checkpoint's size, the
    save times (host copy, write) and the verify-and-restore time;
-13. ssm serve: mamba2-1.3b at full width and depth in bf16, one prefill of
+13. ssm train: mamba2-1.3b trained on the reference's einsum SSD path
+   (``use_pallas=False``; ``ssd_intra`` has no backward, and a train step
+   built with ``use_pallas=True`` must raise): at full width and 2 layers
+   in fp32 (TF32 off), B 2, T 1024, the loss and every gradient leaf with
+   kernel #1 in every projection against the plain products (within
+   mdchecks' TRAIN_TOL["cuda"]); then at full width and depth, fp32 params,
+   bf16 compute, AdamW, remat="full", seq 2048 x batch 8, 10 steps through
+   runtime/train_loop.train with the launch counters zeroed just before:
+   finite losses starting near ln(vocab), none skipped, exactly 2 x 4 x 48
+   tesseract_mm launches a step (a forward and its recompute) and no other
+   kernel; step time, tokens/s, model FLOPs share, peak memory and a
+   profiled step (device busy and idle, #1, the other GEMMs, the SSD
+   einsums and the rest); then remat "none", "full" and "dots", 2 steps
+   each at seq 2048 x batch 1 (none's largest fitting batch): losses
+   bit-equal, dots launching #1 only in the forward, the memory held after
+   one more forward (the saved activations) full < dots < none, and the
+   peaks (the run's; that forward and backward's) full <= dots < none
+   (full's and dots' are set where no activation is held any more);
+14. ssm serve: mamba2-1.3b at full width and depth in bf16, one prefill of
    8 prompts x 2048 tokens (Q = 256, nc = 8) and 32 greedy decode steps
    with the launch counters zeroed just before: exactly 48 SSD launches
    and 4 x 48 tesseract_mm launches per prefill and decode step, in-vocab
    ids, finite states; prefill time, decode step p50/p99, tokens/s, peak
    memory and a profiled prefill;
-14. timings at the serve and train shapes: each kernel checked once more
+15. timings at the serve and train shapes: each kernel checked once more
    against its plain version on the exact inputs it times (flash at the
    2048 bucket and at the train shape, paged with a 256-entry table over
    the 2048-block pool, the backward passes and the forward at the train
@@ -117,7 +135,7 @@ non-zero and prints no result:
    from the plain version's; and the host time of one projection (the SUMMA
    wrapper against torch.matmul, and on the wgmma route, whose launch
    encodes two TMA descriptors);
-15. the last line: {"ok": true, "device": {...}}.
+16. the last line: {"ok": true, "device": {...}}.
 
 The four-card mesh is not a phase (this script needs one card): it runs
 under torchrun, ``python -m repro_torch.testing.mdchecks`` and
@@ -157,6 +175,12 @@ H100_FP32_FLOPS = 67e12      # fp32 peak outside the tensor cores
 SSM_ARCH = "mamba2-1.3b"
 SSM_PROMPT, SSM_BATCH, SSM_NEW = 2048, 8, 32
 SSD_TOL = 1e-4               # |kernel - plain| <= SSD_TOL * max |plain|
+# ssm training: the fp32 parity at full width and SSM_PARITY_LAYERS layers
+# (B 2, T 1024), the main path at full width and depth, and the remat
+# comparison at a batch whose remat="none" step fits the card
+SSM_PARITY_LAYERS = 2
+SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, SSM_TRAIN_STEPS = 2048, 8, 10
+SSM_REMAT_BATCH, SSM_REMAT_STEPS = 1, 2
 # |SUMMA kernel - plain| <= MM_TOL * max |plain|: the kernels sum up to
 # T * F = 22016 products in fp32 in their tiles' order, the plain versions
 # in float64 (a bf16 input is exact in both)
@@ -556,17 +580,22 @@ PAGED_SPLIT_CASES = (
      dict(bs=16, window=0, one_kv=True)))
 
 
-def _model(arch, param_dtype, compute_dtype, attn_impl, **run_kw):
+def _model(arch, param_dtype, compute_dtype, attn_impl, layers=None,
+           **run_kw):
     """Full-width ``arch`` on the card with random weights from seed 0
-    (remat off unless ``run_kw`` says otherwise: the train phases keep
-    every activation)."""
+    (``layers`` cuts the depth; remat off unless ``run_kw`` says
+    otherwise: the train phases keep every activation)."""
+    import dataclasses
     from repro_torch.configs.base import RunConfig
     from repro_torch.core.api import ParallelContext
     from repro_torch.models.registry import build_model, get_arch
+    cfg = get_arch(arch).model
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     run = RunConfig(param_dtype=param_dtype, compute_dtype=compute_dtype,
                     attn_impl=attn_impl, **{"remat": "none", **run_kw})
     ctx = ParallelContext(mode="tesseract", attn_impl=attn_impl)
-    return build_model(get_arch(arch).model, ctx, run, device="cuda", seed=0)
+    return build_model(cfg, ctx, run, device="cuda", seed=0)
 
 
 def _prefill_decode(model, prompt, steps, feed=None):
@@ -1129,14 +1158,16 @@ def phase_train_restart(want_losses):
 
 def profile_train_step(model, shape):
     """Where a train step's time goes: one step after a warm-up step,
-    under torch.profiler; device time by kernel and the idle share."""
+    under torch.profiler: device time by kernel, busy and idle, kernel
+    #1's time, the other GEMMs' (aten::mm / addmm: the projections'
+    backward and the CE head), the batched products' (aten::bmm / baddbmm:
+    the SSD einsums of an ssm model) and the rest (elementwise,
+    reductions, copies; attention's kernels on a dense model)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.optim.adamw import adamw_init
-    from repro_torch.runtime.steps import build_train_step
+    from repro_torch.runtime.steps import build_train_step, init_opt_state
     step = build_train_step(model, shape)
-    opt = adamw_init(list(model.parameters()),
-                     master=model.run.master_weights)
+    opt = init_opt_state(model)
     batch = _train_batch(model, shape.seq_len, shape.global_batch, step=100)
     step(opt, batch)
     torch.cuda.synchronize()
@@ -1146,17 +1177,29 @@ def profile_train_step(model, shape):
         step(opt, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    avg = prof.key_averages()
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
+                      for e in avg if e.device_type == DeviceType.CUDA
                       and e.self_device_time_total > 0),
                      key=lambda kv: -kv[1])
     busy = sum(ms for _, ms, _ in kernels)
+
+    def op_ms(*names):
+        return sum(e.self_device_time_total / 1e3 for e in avg
+                   if e.device_type == DeviceType.CPU and e.key in names)
+
+    mm1 = sum(ms for k, ms, _ in kernels if "tesseract_mm" in k)
+    gemm = op_ms("aten::mm", "aten::addmm")
+    bmm = op_ms("aten::bmm", "aten::baddbmm")
     log(json.dumps({
-        "profile": f"train step, {TRAIN_ARCH} seq {shape.seq_len} x batch "
-                   f"{shape.global_batch}, bf16 compute",
+        "profile": f"train step, {model.cfg.name} seq {shape.seq_len} x "
+                   f"batch {shape.global_batch}, {model.run.compute_dtype} "
+                   f"compute, {model.run.optimizer}, remat "
+                   f"{model.run.remat}",
         "wall_ms": wall_ms, "device_busy_ms": busy,
         "device_idle_share": (1.0 - busy / wall_ms) if busy else None,
+        "tesseract_mm_ms": mm1, "other_gemm_ms": gemm, "bmm_ms": bmm,
+        "rest_ms": busy - mm1 - gemm - bmm,
         "top_kernels_ms_calls": [[k[:80], ms, n]
                                  for k, ms, n in kernels[:12]]}))
     del opt
@@ -1602,6 +1645,184 @@ def _ssm_model(param_dtype, compute_dtype, use_pallas):
                     use_pallas=use_pallas)
     return build_model(get_arch(SSM_ARCH).model, ParallelContext(), run,
                        device="cuda", seed=0)
+
+
+def _ssm_train_run(steps, batch, **run_kw):
+    """``steps`` train steps of full-width, full-depth mamba2-1.3b (fp32
+    params, bf16 compute, the SSD einsum path, seq SSM_TRAIN_SEQ x
+    ``batch``) through ``train`` with the launch counters zeroed just
+    before: (the model, its shape, the TrainResult, the launches, the
+    peak device memory in bytes)."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime.train_loop import train
+    model = _model(SSM_ARCH, "float32", "bfloat16", "auto", **run_kw)
+    shape = ShapeSpec("train", SSM_TRAIN_SEQ, batch, "train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    res = train(model, shape, steps=steps, seed=0, log_every=1)
+    torch.cuda.synchronize()
+    launches = dict(kops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    return model, shape, res, launches, peak
+
+
+def phase_ssm_train():
+    """The ssm train slice: mamba2-1.3b trained on the reference's einsum
+    SSD path (``use_pallas=False``: ``ssd_intra`` has no backward).  (1)
+    full-width fp32 parity at SSM_PARITY_LAYERS layers, #1 against the
+    plain products; (2) the main path at full width and depth, 10 steps;
+    (3) remat none / full / dots at a batch where none fits."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import summa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.tesseract_mm import tesseract_mm_plain
+    from repro_torch.launch.train import train_flops
+    from repro_torch.runtime.steps import build_train_step
+    from repro_torch.testing.mdchecks import TRAIN_TOL
+    tol = TRAIN_TOL["cuda"]
+    # (1) parity: fp32, TF32 off, B 2, T 1024 (4 SSD chunks of 256)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _model(SSM_ARCH, "float32", "float32", "auto",
+                   layers=SSM_PARITY_LAYERS)
+    L = model.cfg.num_layers
+    batch = _train_batch(model, 1024, 2)
+    results = []
+    kernel = summa.tesseract_mm       # the name summa's products call
+    for plain in (False, True):
+        kops.reset_launches()
+        model.zero_grad(set_to_none=True)
+        if plain:
+            summa.tesseract_mm = tesseract_mm_plain
+        try:
+            loss = model.loss(batch)
+            loss.backward()
+        finally:
+            summa.tesseract_mm = kernel
+        torch.cuda.synchronize()
+        launched = dict(kops.LAUNCHES)
+        want = 0 if plain else SSM_MM * L
+        check(launched["tesseract_mm"] == want
+              and sum(launched.values()) == want,
+              f"ssm train parity ({'plain' if plain else 'kernel'} "
+              f"products) launched {launched}, want tesseract_mm {want} "
+              f"and nothing else")
+        results.append((loss.item(), {n: p.grad.clone() for n, p in
+                                      model.named_parameters()}))
+    (l_k, g_k), (l_p, g_p) = results
+    worst, worst_name = 0.0, ""
+    for name, gp in g_p.items():
+        rel = max_err(g_k[name], gp) / max(float(gp.abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"ssm train parity: {SSM_ARCH} L={L} fp32 B=2 T=1024, #1 against "
+        f"the plain products: loss {l_k:.6f} vs {l_p:.6f} (|diff| "
+        f"{abs(l_k - l_p):.2e}, bound {tol['loss']}); largest leaf "
+        f"max|diff| / max|grad| {worst:.2e} ({worst_name}, bound "
+        f"{tol['grad']})")
+    check(abs(l_k - l_p) <= tol["loss"], f"ssm train loss {l_k} vs {l_p}")
+    check(worst <= tol["grad"], f"ssm train grads: {worst_name} {worst:.3g}")
+    model.run = dataclasses.replace(model.run, use_pallas=True)
+    try:
+        build_train_step(model, ShapeSpec("train", 1024, 2, "train"))
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    log(f"ssm train: a step built with use_pallas=True: {refused!r}")
+    check("custom_vjp" in refused, "a train step with use_pallas=True was "
+                                   "not refused")
+    del model, results, g_k, g_p
+    torch.cuda.empty_cache()
+
+    # (2) the main path: full width and depth, 10 steps
+    model, shape, res, launches, peak = _ssm_train_run(
+        SSM_TRAIN_STEPS, SSM_TRAIN_BATCH, remat="full")
+    cfg, L = model.cfg, model.cfg.num_layers
+    check(len(res.losses) == SSM_TRAIN_STEPS
+          and all(np.isfinite(res.losses)) and res.nan_skips == 0,
+          f"ssm train losses {res.losses}, {res.nan_skips} skipped")
+    check(abs(res.losses[0] - np.log(cfg.vocab_size)) < 0.5,
+          f"ssm train step 0 loss {res.losses[0]:.3f} not near ln(vocab) "
+          f"{np.log(cfg.vocab_size):.3f}")
+    want = 2 * SSM_MM * L * SSM_TRAIN_STEPS
+    check(launches["tesseract_mm"] == want
+          and sum(launches.values()) == want,
+          f"ssm train launches {launches}: want tesseract_mm {want} (2 x "
+          f"{SSM_MM} x {L} x {SSM_TRAIN_STEPS}: a forward and its "
+          f"recompute) and no other kernel")
+    tokens = SSM_TRAIN_SEQ * SSM_TRAIN_BATCH
+    p50 = float(np.median(res.step_times))
+    flops = train_flops(model, shape)
+    log(f"ssm train: {SSM_ARCH} fp32 params bf16 compute L={L}, AdamW, "
+        f"remat=full, seq {SSM_TRAIN_SEQ} x batch {SSM_TRAIN_BATCH}, "
+        f"{SSM_TRAIN_STEPS} steps: losses "
+        f"{['%.4f' % x for x in res.losses]}")
+    log(f"ssm train: step time p50 {p50 * 1e3:.1f} ms (first step "
+        f"{res.step_times[0] * 1e3:.1f} ms); tokens/s {tokens / p50:.1f}; "
+        f"peak device memory {peak / 2**30:.2f} GiB")
+    log(f"ssm train: model FLOPs per step {flops:.4g} (6 N per token + 3 x "
+        f"the SSD einsums, full Q x Q), {flops / p50 / 1e12:.1f} TFLOP/s, "
+        f"{flops / p50 / H100_BF16_FLOPS:.4f} of the 989 TFLOP/s bf16 peak")
+    log(f"ssm train launches: {launches} (tesseract_mm per step "
+        f"{launches['tesseract_mm'] // SSM_TRAIN_STEPS})")
+    profile_train_step(model, shape)
+    del model
+    torch.cuda.empty_cache()
+
+    # (3) remat none / full / dots at SSM_REMAT_BATCH, the largest batch at
+    # which none fits.  What remat decides is the memory held after the
+    # forward (the saved activations): full < dots < none, strictly.  The
+    # peaks of full and dots are set where no activation is held any more
+    # (a run's: the AdamW update's two param-sized temporaries; one
+    # forward and backward's: the embedding's gradient at the backward's
+    # end, beside every other gradient), so there they may tie, and none's
+    # is the largest
+    runs = {}
+    for remat in ("none", "full", "dots"):
+        model, shape, rres, rl, rpeak = _ssm_train_run(
+            SSM_REMAT_STEPS, SSM_REMAT_BATCH, remat=remat)
+        batch = _train_batch(model, shape.seq_len, shape.global_batch)
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss = model.loss(batch)
+        held = torch.cuda.memory_allocated() - base
+        loss.backward()
+        torch.cuda.synchronize()
+        fb_peak = torch.cuda.max_memory_allocated()
+        runs[remat] = (rres.losses, rl["tesseract_mm"], rpeak, held, fb_peak)
+        log(f"ssm train remat={remat}: {SSM_REMAT_STEPS} steps at seq "
+            f"{SSM_TRAIN_SEQ} x batch {SSM_REMAT_BATCH}: losses "
+            f"{rres.losses}, step ms "
+            f"{[round(t * 1e3, 1) for t in rres.step_times]}, the run's peak "
+            f"device memory {rpeak / 2**30:.2f} GiB, launches {rl}; one "
+            f"more forward and backward without the optimizer state: "
+            f"{held / 2**30:.3f} GiB held after the forward, peak "
+            f"{fb_peak / 2**30:.3f} GiB")
+        del model, loss
+        torch.cuda.empty_cache()
+    same = all(runs[r][0] == runs["none"][0] for r in ("full", "dots"))
+    check(same, f"remat losses differ: "
+                f"{ {r: v[0] for r, v in runs.items()} }")
+    fwd = SSM_MM * L * SSM_REMAT_STEPS
+    check(runs["none"][1] == runs["dots"][1] == fwd
+          and runs["full"][1] == 2 * fwd,
+          f"remat tesseract_mm launches "
+          f"{ {r: v[1] for r, v in runs.items()} }: want none {fwd}, dots "
+          f"{fwd} (nothing in the recompute), full {2 * fwd}")
+    gib = {r: [round(x / 2**30, 3) for x in v[2:]] for r, v in runs.items()}
+    log(f"ssm train remat: GiB (the run's peak, held after a forward, the "
+        f"peak of a forward and backward): {gib}; losses bit-equal: {same}")
+    check(runs["full"][3] < runs["dots"][3] < runs["none"][3],
+          f"remat, held after the forward: {gib}, want full < dots < none")
+    for k, what in ((2, "the run's peak"),
+                    (4, "the peak of a forward and backward")):
+        check(runs["full"][k] <= runs["dots"][k] < runs["none"][k],
+              f"remat, {what}: {gib}, want full <= dots < none")
 
 
 def phase_ssm_parity():
@@ -2139,6 +2360,7 @@ def main():
         train_launches, train_losses, train_peak = phase(phase_train)
         phase(phase_train_features, train_losses, train_peak)
         phase(phase_train_restart, train_losses)
+        phase(phase_ssm_train)
         ssm_launches = phase(phase_ssm_serve)
         # the backward timings check the forward at the train shape too,
         # so they run before the forward's row is written

@@ -382,9 +382,9 @@ def _named_leaves(model):
 
 @torch.no_grad()
 def state_to_host(model, opt) -> dict | None:
-    """The train state of ``model`` (a DenseLM on its mesh) and ``opt``
-    (``runtime/steps.init_opt_state``'s) as the checkpoint's tree of
-    global CPU tensors, on rank 0 (None on the others; collective):
+    """The train state of ``model`` (a DenseLM or a MambaLM on its mesh)
+    and ``opt`` (``runtime/steps.init_opt_state``'s) as the checkpoint's
+    tree of global CPU tensors, on rank 0 (None on the others; collective):
     ``params``, and ``opt`` with ``m``, ``v``, ``master`` (when kept) in
     the params' layout and ``step``.  One leaf is in flight at a time."""
     from ..runtime.steps import leaf_layouts

@@ -16,6 +16,14 @@ cs = cumsum(log_a) within each chunk, per chunk and head h:
     S_c[h]   = sum_j exp(cs_{Q-1} - cs_j) * x[j, h] (x) B_j
 
 Returns (Y [B, nc, Q, H, P] float32, S_c [B, nc, H, P, N] float32).
+
+``ssd_intra`` has no backward, as the reference's has none: its Pallas
+kernel has no ``custom_vjp``, so ``jax.grad`` through
+``ssd_chunked(..., use_pallas=True)`` fails.  It refuses inputs that need
+a gradient (``NoGradError``), on every device, so that a CPU test cannot
+pass where the card's launch would silently drop the gradient through Y
+and S_c.  The reference trains on its einsum path (``use_pallas=False``),
+which ``ssd_intra_plain`` is.
 """
 from __future__ import annotations
 
@@ -88,9 +96,25 @@ def _check(x, log_a, Bm, Cm):
                          "reads it 16 bytes at a time)")
 
 
+NO_GRAD_REASON = (
+    "ssd_intra has no backward: the reference's Pallas kernel has no "
+    "custom_vjp, so jax.grad through ssd_chunked(use_pallas=True) fails "
+    "('Linearization failed'); train with use_pallas=False, the "
+    "reference's einsum path")
+
+
+class NoGradError(NotImplementedError):
+    """A gradient was asked of ``ssd_intra`` (``NO_GRAD_REASON``)."""
+
+
 def ssd_intra(x, log_a, Bm, Cm):
     """Intra-chunk Y and chunk-end states.  A CUDA tensor launches
-    ``csrc/ssd.cu`` (or raises); a CPU tensor takes ``ssd_intra_plain``."""
+    ``csrc/ssd.cu`` (or raises); a CPU tensor takes ``ssd_intra_plain``.
+    Raises ``NoGradError`` on any device when grad mode is on and an input
+    requires grad (module doc)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, log_a, Bm, Cm)):
+        raise NoGradError(NO_GRAD_REASON)
     if x.device.type == "cpu":
         return ssd_intra_plain(x, log_a, Bm, Cm)
     if x.device.type != "cuda":

@@ -125,12 +125,27 @@ def main(argv=None, *, grad_compression: str = "none",
     ap.add_argument("--pipe", type=int, default=1)
     ap.add_argument("--seq-shards", type=int, default=1)
     args = ap.parse_args(argv)
-    for flag, off in (("--pipe", args.pipe == 1),
-                      ("--seq-shards", args.seq_shards == 1)):
-        if not off:
-            raise NotImplementedError(
-                f"{flag} is not supported by repro_torch yet (ROADMAP "
-                f"Queue A, item A3)")
+    from ..models.registry import build_model, get_arch, get_reduced
+    arch = get_reduced(args.arch) if args.reduced else get_arch(args.arch)
+    if arch.model.family == "ssm" and args.mode == "megatron1d":
+        # the reference's refusal (repro/models/ssm.py:110)
+        raise NotImplementedError("ssm arch runs in tesseract modes")
+    for flag, off, ssm_reason in (
+            ("--pipe", args.pipe == 1,
+             "does not support the pipeline stage API "
+             "(supports_pipeline=False)"),
+            ("--seq-shards", args.seq_shards == 1,
+             "does not support sequence-axis sharding "
+             "(supports_seq_shard=False): every time-mixing op must be "
+             "ring-able")):
+        if off:
+            continue
+        if arch.model.family == "ssm":
+            # the reference's reasons (repro/runtime/steps.py)
+            raise NotImplementedError(f"MambaLM {ssm_reason}")
+        raise NotImplementedError(
+            f"{flag} is not supported by repro_torch yet (ROADMAP Queue A, "
+            f"item A3)")
 
     from ..core.mesh import init_distributed
     dev = init_distributed(args.device)
@@ -143,10 +158,8 @@ def main(argv=None, *, grad_compression: str = "none",
     from ..core.api import ParallelContext
     from ..core.mesh import Mesh
     from ..kernels import ops as kops
-    from ..models.registry import build_model, get_arch, get_reduced
     from ..runtime.train_loop import train
 
-    arch = get_reduced(args.arch) if args.reduced else get_arch(args.arch)
     run = RunConfig(param_dtype=args.param_dtype,
                     compute_dtype=args.compute_dtype, loss_chunk=128,
                     lr=args.lr, loss_scale=args.loss_scale,
@@ -194,6 +207,9 @@ def main(argv=None, *, grad_compression: str = "none",
               f"{[round(t * 1e3, 1) for t in res.step_times]}")
         p50 = float(np.median(res.step_times))
         flops = train_flops(model, shape)
+        flops_rule = ("6 N per token + 3 x the SSD einsums (full Q x Q)"
+                      if arch.model.family == "ssm" else
+                      "6 N per token + 12 D per causal pair per head")
         print(f"mesh: {ctx.mode} data={ctx.data} depth={ctx.depth} "
               f"rows={ctx.rows} cols={ctx.cols} "
               f"matmul_schedule={ctx.matmul_schedule} "
@@ -204,7 +220,7 @@ def main(argv=None, *, grad_compression: str = "none",
               f"step p50 {p50 * 1e3:.1f} ms (first "
               f"{res.step_times[0] * 1e3:.1f} ms), tokens/s "
               f"{shape.seq_len * shape.global_batch / p50:.1f}; model "
-              f"FLOPs per step {flops:.4g}"
+              f"FLOPs per step {flops:.4g} ({flops_rule})"
               + (f", {flops / p50 / (mesh.size * H100_BF16_FLOPS):.4f} of "
                  f"{mesh.size} x 989 TFLOP/s bf16 "
                  f"({torch.cuda.get_device_name(dev)})" if cuda else "")
@@ -257,15 +273,35 @@ def _memory_per_rank(model, shape, mesh):
 def train_flops(model, shape) -> float:
     """Model FLOPs of one train step: 6 N per token for the matmuls (N
     counts the head but not the embedding table, whose lookup multiplies
-    nothing) and the attention's 4 D per causal (q, k) pair per q head
-    forward and 8 D backward (QK^T recomputed in both backward passes is
-    not counted)."""
+    nothing), plus the sequence mixing: for attention 4 D per causal (q, k)
+    pair per q head forward and 8 D backward (QK^T recomputed in both
+    backward passes is not counted); for the ssm family ``ssd_flops``
+    forward and twice that backward (a recompute under remat is not
+    counted)."""
     cfg = model.cfg
-    pairs = shape.seq_len * (shape.seq_len + 1) // 2
     n_matmul = cfg.param_count() - cfg.vocab_size * cfg.d_model
-    return (6 * n_matmul * shape.seq_len * shape.global_batch
-            + 12 * model.D * pairs * cfg.num_heads * shape.global_batch
+    mm = 6 * n_matmul * shape.seq_len * shape.global_batch
+    if cfg.family == "ssm":
+        return mm + 3 * ssd_flops(cfg, shape.seq_len) * shape.global_batch
+    pairs = shape.seq_len * (shape.seq_len + 1) // 2
+    return (mm + 12 * model.D * pairs * cfg.num_heads * shape.global_batch
             * cfg.num_layers)
+
+
+def ssd_flops(cfg, seq_len: int) -> float:
+    """Forward FLOPs of the SSD einsums of one sequence over all layers,
+    as the einsum path computes them (``models/ssm.py::ssd_chunked`` with
+    ``ssd_intra_plain``): per chunk of Q tokens (the chunk shrunk to
+    divide ``seq_len``) the full Q x Q scores C.B^T (2 Q^2 N) and Y = W x
+    (2 Q^2 d_inner), not only their causal half, the chunk states (2 Q
+    d_inner N) and the inter-chunk term C.h (2 Q d_inner N).  The masks,
+    decays and the state scan's elementwise work are not counted."""
+    di, N = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    Q = min(cfg.ssm_chunk, seq_len)
+    while seq_len % Q:
+        Q -= 1
+    per_chunk = 2 * Q * Q * N + 2 * Q * Q * di + 4 * Q * di * N
+    return float(per_chunk * (seq_len // Q) * cfg.num_layers)
 
 
 def is_gemm(kernel: str) -> bool:
@@ -278,8 +314,8 @@ def is_gemm(kernel: str) -> bool:
 
 def _profile_step(model, shape, rank0):
     """One train step (after a warm-up step) under torch.profiler on rank 0
-    (every rank runs both): device time by kernel, the NCCL kernels' sum,
-    the GEMMs' sum (``is_gemm``) and the idle share."""
+    (every rank runs both): device time by kernel, the NCCL kernels' sum
+    and launches, the GEMMs' sum (``is_gemm``) and the idle share."""
     import contextlib
     import time
 
@@ -315,13 +351,14 @@ def _profile_step(model, shape, rank0):
                      key=lambda kv: -kv[1])
     busy = sum(ms for _, ms, _ in kernels)
     nccl = sum(ms for k, ms, _ in kernels if "nccl" in k.lower())
+    nccl_calls = sum(n for k, _, n in kernels if "nccl" in k.lower())
     return {"profile": f"train step on rank 0, {model.cfg.name} seq "
                        f"{shape.seq_len} x batch {shape.global_batch}, "
                        f"{model.ctx.mode}, {model.run.optimizer}, remat "
                        f"{model.run.remat}",
             "wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": (1.0 - busy / wall_ms) if busy else None,
-            "nccl_ms": nccl,
+            "nccl_ms": nccl, "nccl_calls": nccl_calls,
             "gemm_ms": sum(ms for k, ms, _ in kernels if is_gemm(k)),
             "top_kernels_ms_calls": [[k[:80], ms, n]
                                      for k, ms, n in kernels[:14]]}

@@ -1,6 +1,6 @@
 """Mamba2 (SSD, state-space duality) LM: PyTorch port of
-``repro.models.ssm``, the serve path, on one rank or across the Tesseract
-mesh.
+``repro.models.ssm``, the serve and train paths, on one rank or across the
+Tesseract mesh.
 
 The SSD state recurrence is chunked: within a chunk of Q tokens the output
 is a masked Q x Q product (``kernels/ssd.py``: the Hopper kernel when
@@ -31,8 +31,16 @@ the state recurrence, on the cache layout of ``decode_plan`` (the batch
 over (data, depth, row), over data, or whole: ``cache_batch_axes``).
 ``runtime/serve_steps.py`` holds the static steps around them and the
 prefill-to-decode reshard.  ``MambaLM`` has no paged decode path, so
-``InferenceEngine`` refuses it (the reference's guard).  Not ported yet
-(ROADMAP Queue A, item A3: ssm training): ``loss``.
+``InferenceEngine`` refuses it (the reference's guard).
+
+Training entry point: ``loss(batch)``, the reference's ``MambaLM.loss`` on
+the train plan (the sequence whole on every rank, so no halo and no state
+chain; across ranks the only new collectives of the backward are the
+transposes of ``linear_to_replicated``'s psum and pvary over col).  It
+runs the reference's einsum path: ``ssd_intra`` has no backward, as the
+reference's has none (``kernels/ssd.py``), so ``runtime/steps.py``
+refuses to train a model built with ``use_pallas=True``.  As in the
+reference, the model shards no sequence and has no pipeline stages.
 """
 from __future__ import annotations
 
@@ -46,7 +54,7 @@ from ..core.mesh import Mesh
 from ..core.ops import Plan, make_ops, ops_last_token
 from ..kernels.ssd import ssd_intra, ssd_intra_plain
 from .transformer import (WINIT_SCALE, alloc_local_params,
-                          draw_local_params)
+                          draw_local_params, mean_ce_loss, run_blocks)
 
 CONV_INIT_SCALE = 0.2    # reference: winit(..., 0.2) for conv_x/B/C
 
@@ -157,6 +165,9 @@ def chain_shard(y, h_last, a_prod, log_a, Cm, h_in):
 class MambaLM(nn.Module):
     """Mamba2 LM: embed, ``num_layers`` SSD blocks, the final rmsnorm and
     an untied head, on one rank's blocks of the mesh of ``ctx``."""
+
+    supports_pipeline = False   # custom loss not stage-decomposed
+    supports_seq_shard = False  # SSM scan crosses seq-shard boundaries
 
     def __init__(self, cfg: ModelConfig, ctx: ParallelContext, run: RunConfig,
                  *, device: torch.device, generator: torch.Generator,
@@ -307,7 +318,9 @@ class MambaLM(nn.Module):
         y = y + xh * p["Dskip"].to(x.dtype)[None, None, :, None]
         y = y.reshape(B, T, H * P_)
         y = ops.rmsnorm((y * silu(z)).to(x.dtype), p["ln_y"], cfg.norm_eps)
-        return ops.linear(y, p["w_out"]), h_last, (xin, Bm, Cm)
+        # remat="dots" keeps no w_out output: only the residual add reads it
+        return (ops.linear(y, p["w_out"], keep=False), h_last,
+                (xin, Bm, Cm))
 
     def _mixer_decode(self, p, x, cache_l, ops):
         """Single-token state update.  x: [B, 1, h/q]; cache_l: this
@@ -347,7 +360,40 @@ class MambaLM(nn.Module):
                      "conv_B": ncB.to(cache_l["conv_B"].dtype),
                      "conv_C": ncC.to(cache_l["conv_C"].dtype)}
 
-    # -------------------------------------------------------------- steps
+    # -------------------------------------------------------------- train
+    def _block(self, blk, x, ops):
+        """One layer of the train path: x + mixer(norm(x)) on the layer's
+        params cast to the compute dtype (the reference's ``_block`` on
+        ``cast(bp)``)."""
+        p = self._cast(blk)
+        return x + self._mixer(p, self._norm(ops, x, p["ln"]), ops)[0]
+
+    def loss(self, batch):
+        """Mean next-token cross-entropy of ``batch`` = {"tokens", "labels":
+        [B, S] int, optional "mask": [B, S]}, host layout, the same on every
+        rank (the reference's ``MambaLM.loss``): embed, the blocks, the
+        final norm and the chunked CE over the compute-dtype head,
+        loss_sum / max(count, 1), the sums psum'd over data.
+
+        What the backward keeps of each block (``run.remat``, the
+        reference's ``maybe_remat``): "none", every activation autograd
+        saves; "full", only the block input; "dots", the block input and
+        the outputs of the products w_z, w_x, w_B, w_C and w_dt, the
+        reference's ``dots_with_no_batch_dims_saveable`` set (the SSD
+        einsums have batch dims and are recomputed; w_out's output, which
+        only the residual add reads, is not kept), the products handed
+        back in the recompute without a launch (``core/remat.py``)."""
+        ops = make_ops(self.ctx, self.mesh, Plan.for_shape("train"))
+        cut = ops.tokens_in_axes()
+        x = ops.embed(ops.host_block(batch["tokens"], cut),
+                      self.embed).to(self.cdt)
+        x = run_blocks(self.blocks, x,
+                       lambda blk, x: self._block(blk, x, ops),
+                       self.run.remat)
+        return mean_ce_loss(self, ops, self._norm(ops, x, self.ln_f), batch,
+                            cut)
+
+    # -------------------------------------------------------------- serve
     def _sample(self, ops, x):
         x = self._norm(ops, x, self.ln_f)
         return ops.head_sample(x, self.head.to(self.cdt),

@@ -362,27 +362,10 @@ class DenseLM(nn.Module):
         cut = ops.tokens_in_axes()
         x = ops.embed(ops.host_block(batch["tokens"], cut),
                       self.embed).to(self.cdt)
-
-        def block(blk, x):
-            return self._block(blk, x, ops)[0]
-
-        for blk in self.blocks:
-            if self.run.remat == "full":
-                x = checkpoint(block, blk, x, use_reentrant=False)
-            elif self.run.remat == "dots":
-                x = checkpoint(block, blk, x, use_reentrant=False,
-                               context_fn=remat.dots_contexts)
-            else:
-                x = block(blk, x)
-        x = self._final(ops, x)
-        mask = batch.get("mask")
-        loss_sum, count = ops.ce_loss(
-            x, self.head.to(self.cdt), ops.host_block(batch["labels"], cut),
-            vocab_real=self.cfg.vocab_size, loss_chunk=self.run.loss_chunk,
-            label_mask=None if mask is None else ops.host_block(mask, cut))
-        loss_sum = col.psum(self.mesh, loss_sum, "data")
-        count = col.psum(self.mesh, count, "data")
-        return loss_sum / count.clamp(min=1.0)
+        x = run_blocks(self.blocks, x,
+                       lambda blk, x: self._block(blk, x, ops)[0],
+                       self.run.remat)
+        return mean_ce_loss(self, ops, self._final(ops, x), batch, cut)
 
     def tess_weight_names(self) -> set:
         """Names of the block params that flow only through
@@ -452,6 +435,39 @@ class DenseLM(nn.Module):
             x = self._block_decode_paged(blk, x, pool_l, table, pos, ops,
                                          idx=idx, kv_map=kv_map)
         return self._logits(ops, self._final(ops, x))
+
+
+def run_blocks(blocks, x, block, remat_mode: str):
+    """``x`` through ``block(blk, x)`` for each layer ``blk`` of ``blocks``
+    under the reference's ``maybe_remat`` policy: "none" (autograd keeps
+    what it saves), "full" (only each block's input, the block recomputed
+    in the backward by ``torch.utils.checkpoint``) or "dots" (the block's
+    products kept too, handed back in the recompute: ``core/remat.py``)."""
+    for blk in blocks:
+        if remat_mode == "full":
+            x = checkpoint(block, blk, x, use_reentrant=False)
+        elif remat_mode == "dots":
+            x = checkpoint(block, blk, x, use_reentrant=False,
+                           context_fn=remat.dots_contexts)
+        else:
+            x = block(blk, x)
+    return x
+
+
+def mean_ce_loss(model, ops, x, batch, cut):
+    """The mean next-token cross-entropy of an LM's final hidden states
+    ``x`` against ``batch["labels"]`` (weighted by ``batch["mask"]`` when
+    given; host layout, cut by ``cut``): the chunked CE over the
+    compute-dtype head, its sum and count psum'd over data, loss_sum /
+    max(count, 1)."""
+    mask = batch.get("mask")
+    loss_sum, count = ops.ce_loss(
+        x, model.head.to(model.cdt), ops.host_block(batch["labels"], cut),
+        vocab_real=model.cfg.vocab_size, loss_chunk=model.run.loss_chunk,
+        label_mask=None if mask is None else ops.host_block(mask, cut))
+    loss_sum = col.psum(model.mesh, loss_sum, "data")
+    count = col.psum(model.mesh, count, "data")
+    return loss_sum / count.clamp(min=1.0)
 
 
 def last_token_at(ops, x, lengths):

@@ -35,6 +35,7 @@ from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from ..core import collectives as col
 from ..core.mesh import AXES
+from ..kernels.ssd import NO_GRAD_REASON
 from ..optim import zero
 from ..optim.adamw import adamw_init, adamw_update, cosine_lr, lamb_update
 
@@ -71,11 +72,16 @@ def replicated_axes(spec) -> tuple:
 
 
 def leaf_layouts(model):
-    """Per parameter of ``model.parameters()`` (a DenseLM), in that order:
-    (spec, the axes the step psums its gradient over, ZeRO-1 layout,
-    whether the SUMMA op reduced its dW already).  A weight reduced in the
-    op syncs over nothing; under ZeRO-1 the zaxes leave the psum for the
-    reduce-scatter."""
+    """Per parameter of ``model.parameters()`` (a DenseLM or a MambaLM:
+    any model with ``top_specs``, ``block_specs`` and
+    ``tess_weight_names``), in that order: (spec, the axes the step psums
+    its gradient over, ZeRO-1 layout, whether the SUMMA op reduced its dW
+    already).  A weight reduced in the op syncs over nothing; under ZeRO-1
+    the zaxes leave the psum for the reduce-scatter.  The axes come from
+    the spec alone: e.g. mamba2's conv_B and conv_C (replicated) sync
+    over every axis, w_B and w_C (col on their first dim) over (data,
+    depth, row), dt_bias, A_log and Dskip (col) over (data, depth, row),
+    and w_z, w_x, w_dt and w_out, reduced in the op, over nothing."""
     tess = model.tess_weight_names() if model.ctx.reduce_dgrad_in_op else ()
     use_zero = model.run.zero_enabled
     out = []
@@ -138,9 +144,9 @@ def sync_grads(mesh, grads, axes_per_leaf, compress: str = "none") -> None:
 
 def build_train_step(model, shape, *, accum_steps: int = 1,
                      loss_scale: float | None = None):
-    """The train step of ``model`` (a DenseLM, on one rank or on its mesh)
-    for batches of ``shape`` (a train ShapeSpec): ``step(opt_state, batch)
-    -> metrics``.
+    """The train step of ``model`` (a DenseLM or a MambaLM, on one rank or
+    on its mesh) for batches of ``shape`` (a train ShapeSpec):
+    ``step(opt_state, batch) -> metrics``.
 
     ``batch`` holds "tokens" and "labels" ([B, S] int tensors on the
     model's device, host layout: every rank passes the same batch and the
@@ -176,11 +182,11 @@ def build_train_step(model, shape, *, accum_steps: int = 1,
     "skipped"."""
     run = model.run
     mesh = model.mesh
-    if not hasattr(model, "loss"):
-        raise NotImplementedError(
-            f"{type(model).__name__} has no loss: ssm training is not "
-            f"ported yet (ROADMAP Queue A, item A3: ssm training; the "
-            f"reference has no backward for ssd_intra)")
+    if model.cfg.family == "ssm" and run.use_pallas:
+        # the reference's jax.grad fails there; the card's launch would
+        # drop the gradient through the kernel's outputs
+        raise NotImplementedError(f"ssm training with use_pallas=True: "
+                                  f"{NO_GRAD_REASON}")
     if run.optimizer == "lamb" and run.zero_enabled:
         raise NotImplementedError(
             "optimizer='lamb' with ZeRO-1 is not wired: the trust ratios "

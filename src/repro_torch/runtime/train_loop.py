@@ -74,8 +74,8 @@ def train(model, shape, *, steps: int, seed: int = 0, log_every: int = 10,
           accum_steps: int | None = None, ckpt_dir=None,
           ckpt_every: int = 50, max_restarts: int = 3, fault_hook=None,
           stream=None, monitor=None, injector=None) -> TrainResult:
-    """Run ``steps`` optimizer steps of ``model`` (a DenseLM, on its device
-    and mesh) on ``stream`` (default ``SyntheticLMStream(vocab,
+    """Run ``steps`` optimizer steps of ``model`` (a DenseLM or a MambaLM,
+    on its device and mesh) on ``stream`` (default ``SyntheticLMStream(vocab,
     shape.global_batch, shape.seq_len, seed=seed)``), from the newest
     checkpoint in ``ckpt_dir`` or else from the model's current parameters
     and a fresh AdamW state (ZeRO-1 slices when ``run.zero_enabled``).

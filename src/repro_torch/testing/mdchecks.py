@@ -45,10 +45,13 @@ or on ``--layout data,1,1,cols``.  Checks:
   a_log, batch, prompt_len, steps, plan) and ``--out FILE`` as above;
 - ``train_parity``: training on the mesh against the one-rank port on the
   same global weights and batch, for each arch case (on the CPU reduced
-  yi-6b, KV heads sharded, and reduced smollm-360m, KV replicated and q
-  heads padded; on the card yi-6b at full width, 2 layers), on the fused
-  and the ring schedule, with ``reduce_dgrad_in_op`` on and off (and once
-  with the fused backward's cache knobs flipped; Megatron has one run, and
+  yi-6b, KV heads sharded, reduced smollm-360m, KV replicated and q
+  heads padded, and reduced mamba2, its decay slowed (``slow_decay``) so
+  that a chunk's state reaches the next chunk; on the card yi-6b and
+  mamba2-1.3b at full width, 2 layers), on the fused and the ring
+  schedule, with ``reduce_dgrad_in_op`` on and off (and once with the
+  fused backward's cache knobs flipped; mamba2 fused with ZeRO-1 and the
+  ring; Megatron has one run, refuses mamba2 as the reference does, and
   on the CPU a reduced yi-6b case with its KV heads sharded over col): the
   loss, every synced
   gradient leaf reassembled (``convert.unshard_params``), and the params
@@ -58,7 +61,8 @@ or on ``--layout data,1,1,cols``.  Checks:
   both schedules (``grad_compression`` where data x depth > 1,
   ``dgrad_rs_bf16`` where q > 1): the loss, every gradient leaf within
   ``WIRE_HOPS_TOL`` of its max, and ZeRO-1's 2 steps.  The train features
-  (``_feature_grid``, yi-6b, on a mesh without data or depth replicas:
+  (``_feature_grid``, yi-6b and mamba2, on a mesh without data or depth
+  replicas:
   [2, 2, 1], or Megatron's cols = the world): remat="dots" on each
   schedule (the loss and
   every gradient leaf, and on the card each product's kernel launched once
@@ -642,17 +646,23 @@ def _ssm_models(mesh, dev, case):
         params_from_jax(tree, one)
         params_from_jax(shard_params(tree, cfg, ctx, mesh.coords), model)
     if "a_log" in case:
-        # slow decay (A = -exp(A_log), spread over the heads), so that the
-        # state entering a sequence shard carries into its outputs
-        glob = torch.linspace(case["a_log"] - 1.0, case["a_log"] + 1.0,
-                              one.n_heads)
-        with torch.no_grad():
-            for m in (model, one):
-                vals = local_block(glob, (("col",),), m.mesh.sizes,
-                                   m.mesh.coords)
-                for blk in m.blocks:
-                    blk.A_log.copy_(vals)
+        # the state entering a sequence shard carries into its outputs
+        slow_decay(model, case["a_log"])
+        slow_decay(one, case["a_log"])
     return model, one
+
+
+@torch.no_grad()
+def slow_decay(model, a_log: float) -> None:
+    """Set every layer's A_log (A = -exp(A_log)) to ``a_log`` +- 1 spread
+    over the global heads, each rank its block: a slow decay, so that a
+    state carries across chunks and sequence shards (the seed's 0 decays
+    it by ~0.5 a token)."""
+    glob = torch.linspace(a_log - 1.0, a_log + 1.0, model.n_heads)
+    vals = local_block(glob, (("col",),), model.mesh.sizes,
+                       model.mesh.coords)
+    for blk in model.blocks:
+        blk.A_log.copy_(vals)
 
 
 # the cache leaves' dim over col: the state's heads, conv_x's channels
@@ -774,9 +784,19 @@ TRAIN_LR = 0.1          # large enough that the second step moves the params
 LR_SUM = TRAIN_LR / 100  # cosine_lr of steps 0 and 1 (warmup 100)
 
 
+# mamba2's mesh runs: fused with ZeRO-1, and the ring
+SSM_TRAIN_GRID = [("fused", True, False, True), ("ring", True, False, False)]
+
+
 def _train_cases(device, ctx):
+    """The arch cases (chunk: the CE loss chunk).  mamba2 slows its decay
+    (``slow_decay``), so that a chunk's state reaches the next chunk's
+    outputs and a broken inter-chunk gradient shows; Megatron refuses it
+    (the reference's "ssm arch runs in tesseract modes")."""
     if device.type == "cuda":
-        return [dict(arch="yi-6b", layers=2, batch=4, seq=256, chunk=128)]
+        return [dict(arch="yi-6b", layers=2, batch=4, seq=256, chunk=128),
+                dict(arch="mamba2-1.3b", layers=2, batch=4, seq=512,
+                     chunk=256, a_log=-4.0, grid=SSM_TRAIN_GRID)]
     # Megatron at cols 4 replicates reduced yi-6b's 2 KV heads: one case
     # shards 4 over col
     sharded = ([dict(arch="yi-6b", reduced=True, batch=4, seq=16, chunk=8,
@@ -790,7 +810,25 @@ def _train_cases(device, ctx):
             # bias replicated over every axis), on one run and ZeRO-1
             dict(arch="smollm-360m", reduced=True, batch=4, seq=16, chunk=8,
                  model=dict(norm="layernorm", use_bias=True),
-                 grid=[("fused", True, False, True)])]
+                 grid=[("fused", True, False, True)]),
+            # two SSD chunks of 8
+            dict(arch="mamba2-1.3b", reduced=True, batch=4, seq=16, chunk=8,
+                 a_log=-4.0, grid=SSM_TRAIN_GRID)]
+
+
+def _train_model(case, cfg, ctx, run, dev, mesh=None):
+    """The case's model on ``mesh`` (one rank when None): the seed-0
+    global weights, with the case's ``slow_decay``."""
+    model = build_model(cfg, ctx, run, device=dev, seed=0, mesh=mesh)
+    if "a_log" in case:
+        slow_decay(model, case["a_log"])
+    return model
+
+
+def _features_and_wires(case) -> bool:
+    """Whether a case runs the bf16 wire formats and the train features
+    (the first case of each family)."""
+    return case["arch"] in ("yi-6b", "mamba2-1.3b") and "model" not in case
 
 
 def _train_cfg(case):
@@ -867,7 +905,7 @@ def _check_wire_formats(mesh, dev, cfg, run, case, shape, batch, want_loss,
             run, grad_compression=("bf16" if wire == "grad_compression"
                                    else "none"))
         what = f"{case['arch']} {sched} {wire}"
-        model = build_model(cfg, ctx, wrun, device=dev, seed=0, mesh=mesh)
+        model = _train_model(case, cfg, ctx, wrun, dev, mesh)
         loss = model.loss(batch)
         loss.backward()
         grads = [p.grad for p in model.parameters()]
@@ -889,7 +927,7 @@ def _check_wire_formats(mesh, dev, cfg, run, case, shape, batch, want_loss,
         worst = max(worst, max(g_err.values()) / bound)
         del model
         zrun = dataclasses.replace(wrun, zero1=True)
-        zmodel = build_model(cfg, ctx, zrun, device=dev, seed=0, mesh=mesh)
+        zmodel = _train_model(case, cfg, ctx, zrun, dev, mesh)
         zmetrics, _ = _two_steps(zmodel, shape, cfg, case, dev)
         zl = max(abs(a["loss"] - b["loss"])
                  for a, b in zip(zmetrics, want_metrics))
@@ -928,8 +966,8 @@ def _check_train_features(mesh, dev, cfg, run, case, shape, batch, want_loss,
     refuses it.  Returns (the worst error as a share of max, the runs)."""
     worst = 0.0
     lrun = dataclasses.replace(run, optimizer="lamb")
-    one = build_model(cfg, ParallelContext(attn_impl="auto"), lrun,
-                      device=dev, seed=0)
+    one = _train_model(case, cfg, ParallelContext(attn_impl="auto"), lrun,
+                       dev)
     want_metrics, _ = _two_steps(one, shape, cfg, case, dev)
     want_params = params_to_numpy(one)
     del one
@@ -938,7 +976,7 @@ def _check_train_features(mesh, dev, cfg, run, case, shape, batch, want_loss,
         what = f"{case['arch']} {sched} remat={remat} optimizer={opt}"
         ctx = mesh.ctx.replace(matmul_schedule=sched, attn_impl="auto")
         frun = dataclasses.replace(run, remat=remat, optimizer=opt)
-        model = build_model(cfg, ctx, frun, device=dev, seed=0, mesh=mesh)
+        model = _train_model(case, cfg, ctx, frun, dev, mesh)
         if opt == "lamb":
             metrics, _ = _two_steps(model, shape, cfg, case, dev)
             params = unshard_params(_gather_tree(mesh, dev,
@@ -976,7 +1014,8 @@ def _check_train_features(mesh, dev, cfg, run, case, shape, batch, want_loss,
         if dev.type == "cuda" and ctx.mode != "megatron1d":
             kernel, per = (("tesseract_mm_stream", ctx.cols) if sched == "ring"
                            else ("tesseract_mm", 1))
-            want_n = 7 * cfg.num_layers * per
+            # the SUMMA products of a layer: 7 dense, 4 ssm
+            want_n = len(model.tess_weight_names()) * cfg.num_layers * per
             _agree(mesh, dev, n_fwd[kernel] == n_all[kernel] == want_n,
                    f"{what}: {kernel} launched {n_fwd[kernel]} times in the "
                    f"forward and {n_all[kernel]} in all, want {want_n} and "
@@ -988,8 +1027,8 @@ def _check_train_features(mesh, dev, cfg, run, case, shape, batch, want_loss,
                   f"in all) {launched}; {time.perf_counter() - t1:.1f} s")
         del model
     zrun = dataclasses.replace(lrun, zero1=True)
-    zmodel = build_model(cfg, mesh.ctx.replace(attn_impl="auto"), zrun,
-                         device=dev, seed=0, mesh=mesh)
+    zmodel = _train_model(case, cfg, mesh.ctx.replace(attn_impl="auto"), zrun,
+                          dev, mesh)
     try:
         build_train_step(zmodel, shape)
         refused = False
@@ -1058,11 +1097,23 @@ def check_train_parity(mesh: Mesh, dev, args):
         run = RunConfig(param_dtype="float32", compute_dtype="float32",
                         attn_impl="auto", loss_chunk=case["chunk"],
                         lr=TRAIN_LR)
+        if cfg.family == "ssm" and mesh.ctx.mode == "megatron1d":
+            try:
+                build_model(cfg, mesh.ctx, run, device=dev, mesh=mesh)
+                refused = False
+            except NotImplementedError as e:
+                refused = "ssm arch runs in tesseract modes" in str(e)
+            _agree(mesh, dev, refused, f"{case['arch']} was not refused on "
+                                       f"megatron1d as the reference "
+                                       f"refuses it")
+            log(mesh, f"  train_parity {case['arch']}: refused on "
+                      f"megatron1d, as in the reference")
+            continue
         shape = ShapeSpec("train", case["seq"], case["batch"], "train")
         batch = {k: v.to(dev) for k, v in _train_batch(cfg, case, 0).items()}
         # the one-rank oracle: loss, gradients, params after 2 steps
-        one = build_model(cfg, ParallelContext(attn_impl="auto"), run,
-                          device=dev, seed=0)
+        one = _train_model(case, cfg, ParallelContext(attn_impl="auto"), run,
+                           dev)
         init = params_to_numpy(one)
         want_loss = one.loss(batch)
         want_loss.backward()
@@ -1070,15 +1121,15 @@ def check_train_parity(mesh: Mesh, dev, args):
         want_metrics, _ = _two_steps(one, shape, cfg, case, dev)
         want_params = params_to_numpy(one)
         del one
-        if case["arch"] == "yi-6b" and "model" not in case:
-            worst["wire"] = _check_wire_formats(
+        if _features_and_wires(case):
+            worst["wire"] = max(worst["wire"], _check_wire_formats(
                 mesh, dev, cfg, run, case, shape, batch, want_loss,
-                want_grads, want_metrics, tol)
-        if (case["arch"] == "yi-6b" and "model" not in case
-                and mesh.ctx.data * mesh.ctx.depth == 1):
-            worst["features"], runs = _check_train_features(
+                want_grads, want_metrics, tol))
+        if _features_and_wires(case) and mesh.ctx.data * mesh.ctx.depth == 1:
+            feat, runs = _check_train_features(
                 mesh, dev, cfg, run, case, shape, batch, want_loss,
                 want_grads, tol)
+            worst["features"] = max(worst["features"], feat)
             n_runs += runs
         grid = case.get("grid") or _train_grid(dev, mesh.ctx)
         for k, (sched, inop, flip, zero1) in enumerate(grid):
@@ -1092,7 +1143,7 @@ def check_train_parity(mesh: Mesh, dev, args):
                                    reduce_dgrad_in_op=inop, attn_impl="auto",
                                    cache_act_gather=flip,
                                    cache_weight_gather=not flip)
-            model = build_model(cfg, ctx, run, device=dev, seed=0, mesh=mesh)
+            model = _train_model(case, cfg, ctx, run, dev, mesh)
             if k == 0:
                 got = unshard_params(_gather_tree(mesh, dev,
                                                   params_to_numpy(model)),
@@ -1142,8 +1193,7 @@ def check_train_parity(mesh: Mesh, dev, args):
                 continue
             # ZeRO-1 against the replicated optimizer, on the same mesh
             zrun = dataclasses.replace(run, zero1=True)
-            zmodel = build_model(cfg, ctx, zrun, device=dev, seed=0,
-                                 mesh=mesh)
+            zmodel = _train_model(case, cfg, ctx, zrun, dev, mesh)
             zmetrics, zopt = _two_steps(zmodel, shape, cfg, case, dev)
             _check_zero_state(mesh, dev, zmodel, zopt, what)
             zparams = unshard_params(_gather_tree(mesh, dev,

@@ -33,6 +33,18 @@ DQ_SPLIT_TOL = 1e-5                  # |unrounded dq - reference|, times
                                      # max |dq|
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's torch ops run on one thread: the suite's xdist workers
+    share the machine's cores, and torch's default of a thread per core in
+    every worker oversubscribes them (a test file then burns several times
+    its CPU time spinning, beside the suite's longest file)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("q_start,Tq,window", [(0, 2048, 0), (0, 1000, 256),
                                                (37, 70, 0), (37, 1000, 100),
                                                (128, 300, 64), (0, 500, 0)])

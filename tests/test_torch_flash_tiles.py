@@ -31,6 +31,18 @@ BF16_OUT_TOL, LSE_TOL = 1e-2, 1e-3   # chip_smoke.py's _tols(bfloat16)
 SPLIT_TOL = 2e-5                     # |unrounded output - reference|
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's torch ops run on one thread: the suite's xdist workers
+    share the machine's cores, and torch's default of a thread per core in
+    every worker oversubscribes them (a test file then burns several times
+    its CPU time spinning, beside the suite's longest file)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _positions(kind, Tq, rng):
     ar = np.arange(Tq)
     return {"arange+37": ar + 37,

@@ -21,6 +21,18 @@ from repro_torch.kernels.paged_attention import paged_attention_plain
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's torch ops run on one thread: the suite's xdist workers
+    share the machine's cores, and torch's default of a thread per core in
+    every worker oversubscribes them (a test file then burns several times
+    its CPU time spinning, beside the suite's longest file)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _qkv(rng, B, Hq, Hkv, Tq, Tk, D):
     return (rng.standard_normal((B, Hq, Tq, D)).astype(np.float32),
             rng.standard_normal((B, Hkv, Tk, D)).astype(np.float32),

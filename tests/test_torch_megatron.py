@@ -16,8 +16,10 @@ against the JAX package's.
     preempt, and on the port's seeded weights, each against the port's
     one-rank engine (greedy ids identical, logits within 1e-4 of max); and
     training against the port's one-rank step (loss within 1e-5, each
-    gradient leaf within 1e-5 of its max, ZeRO-1 within 1e-6).  A spawn of
-    8 ranks trains on ``--layout 2,1,1,4`` (ZeRO-1 over data).
+    gradient leaf within 1e-5 of its max, ZeRO-1 within 1e-6; mamba2
+    refused, "ssm arch runs in tesseract modes", as the reference refuses
+    it).  A spawn of 8 ranks trains on ``--layout 2,1,1,4`` (ZeRO-1 over
+    data).
 (c) The spawn's greedy ids on the reference's ``model.init`` params equal
     the reference's own ``megatron1d, cols=4`` engine (KV 2, run in a
     subprocess with 4 fake CPU devices) and, at KV 4, the reference's

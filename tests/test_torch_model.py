@@ -32,6 +32,18 @@ ATOL = 5e-5
 B, S, BS, NB_POOL, STEPS = 2, 16, 4, 24, 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's torch ops run on one thread: the suite's xdist workers
+    share the machine's cores, and torch's default of a thread per core in
+    every worker oversubscribes them (a test file then burns several times
+    its CPU time spinning, beside the suite's longest file)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ref_run(arch, tokens, lengths, tables, dec_ids):
     ctx = RefCtx(mode="tesseract", attn_impl="jnp")
     run = RefRun(param_dtype="float32", compute_dtype="float32",

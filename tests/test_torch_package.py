@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs.base import RunConfig
+from repro_torch.configs.base import RunConfig, ShapeSpec
 from repro_torch.core.api import ParallelContext
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import (flash_dkv, flash_dkv_plain,
@@ -23,6 +23,7 @@ from repro_torch.kernels.tesseract_mm import (tesseract_mm,
                                               tesseract_mm_stream,
                                               tesseract_mm_stream_plain)
 from repro_torch.models.registry import build_model, get_reduced
+from repro_torch.runtime.steps import build_train_step
 from repro_torch.serve import EngineConfig, InferenceEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -205,6 +206,18 @@ def test_unported_features_raise():
             InferenceEngine(faulty, EngineConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_reduced("recurrentgemma-9b")
+    # ssm training is ported, on the reference's einsum path; with the SSD
+    # kernel (use_pallas=True), which has no backward, it is refused
+    shape = ShapeSpec("t", 16, 2, "train")
+    for use_pallas in (False, True):
+        ssm = build_model(get_reduced("mamba2-1.3b").model,
+                          ParallelContext(),
+                          RunConfig(use_pallas=use_pallas), device="cpu")
+        if use_pallas:
+            with pytest.raises(NotImplementedError, match="custom_vjp"):
+                build_train_step(ssm, shape)
+        else:
+            build_train_step(ssm, shape)
 
 
 def test_serve_launcher_runs_on_cpu(capsys):

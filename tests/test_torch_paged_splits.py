@@ -35,6 +35,18 @@ GMAX = 8         # q heads a split block takes per pass (one warp each)
 TOL = dict(rtol=1e-5, atol=1e-5)   # fp32: only the summation order differs
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's torch ops run on one thread: the suite's xdist workers
+    share the machine's cores, and torch's default of a thread per core in
+    every worker oversubscribes them (a test file then burns several times
+    its CPU time spinning, beside the suite's longest file)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bounds(p, bs, nb, window):
     """[lo, hi) live pages (the reference's _page_bounds, hi clamped)."""
     hi = min(p // bs + 1, nb)

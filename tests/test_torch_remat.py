@@ -92,6 +92,14 @@ def _batch(vocab):
     return {"tokens": tok, "labels": np.roll(tok, -1, axis=1)}
 
 
+def _compiled(jitted, *args):
+    """``jitted`` compiled for ``args`` with LLVM's optimisation off: an
+    oracle runs a few times on tiny shapes, and optimising its code costs
+    more CPU than the runs (the same HLO; the fp32 results may differ
+    by rounding, far inside the tolerances)."""
+    return jitted.lower(*args).compile({"xla_backend_optimization_level": 0})
+
+
 def _leaves(tree):
     out = [(k, v) for k, v in tree.items() if k != "blocks"]
     return out + [(f"blocks.{k}", v) for k, v in tree["blocks"].items()]
@@ -112,8 +120,9 @@ def test_dots_loss_and_grads_match_reference(arch, mode):
     fn = shard_map(jax.value_and_grad(lambda p, b: model.loss(p, b, ops)),
                    mesh=mesh, in_specs=(specs, bspecs),
                    out_specs=(P(), specs))
-    want_loss, want_grads = jax.jit(fn)(
-        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    want_loss, want_grads = _compiled(jax.jit(fn), params, jbatch)(
+        params, jbatch)
     port = _port(pcfg, mode, "dots", jax.tree.map(np.asarray, params))
     loss = port.loss({k: torch.from_numpy(v) for k, v in batch.items()})
     loss.backward()
@@ -150,7 +159,8 @@ def _ref_saved_per_layer(cfg, mode, capsys):
     under remat="dots" that are stacked over the layers ([L, B, S, w]
     under the layer scan), one layer's each, as (token rows, width)."""
     model, ops, bspecs, mesh = _ref(cfg, mode, "dots")
-    params = model.init(jax.random.PRNGKey(0))
+    # the residuals depend on the shapes alone: no init is drawn
+    params = jax.eval_shape(model.init, jax.random.PRNGKey(0))
     batch = {k: jnp.asarray(v) for k, v in _batch(cfg.vocab_size).items()}
     fn = shard_map(lambda p, b: model.loss(p, b, ops), mesh=mesh,
                    in_specs=(model.specs(ops), bspecs), out_specs=P())

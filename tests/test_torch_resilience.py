@@ -16,6 +16,7 @@ The fault plans, checkpoint format and corruption are held to the
 reference's in ``tests/test_torch_faults.py``; ZeRO-1's reslicing and
 ``replan`` in ``tests/test_torch_reslice.py``.
 """
+import dataclasses
 import shutil
 import time
 
@@ -144,6 +145,30 @@ REF_CTX = RefCtx(mode="tesseract", attn_impl="jnp")
 REF_RUN = RefRun(param_dtype="float32", compute_dtype="float32",
                  attn_impl="jnp", loss_chunk=16, q_chunk=8, kv_chunk=8,
                  lr=1e-3)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _oracle_steps_unoptimised():
+    """The reference's train loop compiles its step with LLVM's
+    optimisation off: the oracle runs a few times on tiny shapes, and
+    optimising its code costs more CPU than the runs (the same HLO; the
+    fp32 results may differ by rounding, far inside the tolerances)."""
+    build = ref_loop.build_train_step
+
+    def unoptimised(*a, **kw):
+        bundle = build(*a, **kw)
+        step = []
+
+        def fn(params, opt, batch):
+            if not step:
+                step.append(bundle.fn.lower(params, opt, batch).compile(
+                    {"xla_backend_optimization_level": 0}))
+            return step[0](params, opt, batch)
+        return dataclasses.replace(bundle, fn=fn)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ref_loop, "build_train_step", unoptimised)
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -25,6 +25,18 @@ from repro.kernels.ssd import ssd_intra as ref_ssd_intra
 SSD_TOL = 1e-4      # chip_smoke.py: |kernel - plain| <= SSD_TOL * max |plain|
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's torch ops run on one thread: the suite's xdist workers
+    share the machine's cores, and torch's default of a thread per core in
+    every worker oversubscribes them (a test file then burns several times
+    its CPU time spinning, beside the suite's longest file)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tf32_rna(x):
     """fp32 -> the nearest TF32 value, ties away from zero (cvt.rna.tf32):
     add half of the 13 dropped bits to the magnitude, then clear them."""

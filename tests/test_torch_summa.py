@@ -14,9 +14,9 @@
     q = 1, where a request's K/V blocks may belong to a KV group of the
     other data coordinate: the engine's ids against the port's one-rank
     engine (``serve_engine``).  All three train across ranks against the
-    port's one-rank step (``train_parity``: reduced yi-6b and smollm-360m,
-    fp32, fused and ring, the in-op dW reduction on and off, ZeRO-1
-    against the replicated optimizer).  The spawns start with the
+    port's one-rank step (``train_parity``: reduced yi-6b, smollm-360m and
+    mamba2, fp32, fused and ring, the in-op dW reduction on and off,
+    ZeRO-1 against the replicated optimizer).  The spawns start with the
     module's first test and are read by its last two.
 (c) ``convert.shard_params``: every rank's block of every leaf of the
     reference's param tree is the block its partition spec names, so the

@@ -68,6 +68,14 @@ def _port_model(arch, params_np, **run_kw):
     return params_from_jax(params_np, model)
 
 
+def _compiled(jitted, *args):
+    """``jitted`` compiled for ``args`` with LLVM's optimisation off: an
+    oracle runs a few times on tiny shapes, and optimising its code costs
+    more CPU than the runs (the same HLO; the fp32 results may differ
+    by rounding, far inside the tolerances)."""
+    return jitted.lower(*args).compile({"xla_backend_optimization_level": 0})
+
+
 def _leaves(tree):
     """(name, array) pairs of a reference-layout tree, blocks flattened."""
     out = [(k, v) for k, v in tree.items() if k != "blocks"]
@@ -103,8 +111,9 @@ def test_loss_and_grads_match_reference(arch_name):
     fn = shard_map(jax.value_and_grad(lambda p, b: model.loss(p, b, ops)),
                    mesh=mesh, in_specs=(specs, bspecs),
                    out_specs=(P(), specs))
-    want_loss, want_grads = jax.jit(fn)(
-        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    want_loss, want_grads = _compiled(jax.jit(fn), params, jbatch)(
+        params, jbatch)
 
     port = _port_model(arch, jax.tree.map(np.asarray, params), loss_chunk=8,
                        remat="none")
@@ -133,9 +142,12 @@ def test_train_matches_reference(monkeypatch, accum):
 
     def recording(*a, **kw):
         bundle = build(*a, **kw)
+        step = []
 
         def fn(params, opt, batch):
-            out = bundle.fn(params, opt, batch)
+            if not step:
+                step.append(_compiled(bundle.fn, params, opt, batch))
+            out = step[0](params, opt, batch)
             seen.append((out[0], out[2]))
             return out
         return dataclasses.replace(bundle, fn=fn)

@@ -11,7 +11,9 @@ The multi-rank parity itself runs in the torchrun spawns of
     each leaf's gradient is psum'd over, replicated and under ZeRO-1;
 (d) at one rank ZeRO-1 (every slice the whole leaf) runs the replicated
     optimizer's update bit for bit;
-(e) the refusals that stay name ROADMAP A3 (ssm training among them).
+(e) the refusals that stay name ROADMAP A3, or, for the ssm family, give
+    the reference's reasons; ssm training with ``use_pallas=True`` is
+    refused.
 
 (a) and (b), the layout tables, are in ``tests/test_torch_train_layouts.py``.
 """
@@ -27,6 +29,18 @@ from repro_torch.core.api import ParallelContext
 from repro_torch.models.registry import build_model, get_reduced
 from repro_torch.runtime.steps import (build_train_step, init_opt_state,
                                        leaf_layouts)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """This file's torch ops run on one thread: the suite's xdist workers
+    share the machine's cores, and torch's default of a thread per core in
+    every worker oversubscribes them (a test file then burns several times
+    its CPU time spinning, beside the suite's longest file)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _items(tree):
@@ -99,15 +113,20 @@ def test_one_rank_zero1_is_the_replicated_update():
 
 @pytest.mark.parametrize("flag", [["--pipe", "2"], ["--seq-shards", "2"],
                                   ["--arch", "mamba2-1.3b", "--ckpt",
-                                   "ckpt"],
+                                   "ckpt", "--pipe", "2"],
                                   ["--arch", "mamba2-1.3b", "--fault-plan",
-                                   "train.grads@1:nan"]])
+                                   "train.grads@1:nan", "--ckpt", "ckpt",
+                                   "--seq-shards", "2"]])
 def test_launcher_refuses_unported_flags(flag):
-    """The pipeline and sequence-shard flags raise; checkpoints and fault
-    plans run, but not past the ssm family's refusal to train (before the
-    checkpoint directory is made)."""
+    """The pipeline and sequence-shard flags raise before the checkpoint
+    directory is made: ROADMAP A3 for the dense family, and for the ssm
+    family, which trains with checkpoints and fault plans, the reference's
+    reasons (its MambaLM has neither)."""
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A, item A3"):
+    match = ("ROADMAP Queue A, item A3" if "mamba2-1.3b" not in flag else
+             "supports_pipeline=False" if "--pipe" in flag else
+             "supports_seq_shard=False")
+    with pytest.raises(NotImplementedError, match=match):
         main(["--arch", "yi-6b", "--reduced", "--device", "cpu",
               "--steps", "1"] + flag)
     assert not pathlib.Path("ckpt").exists()
@@ -115,12 +134,20 @@ def test_launcher_refuses_unported_flags(flag):
 
 def test_unported_gradient_formats_refuse():
     """Both of the reference's gradient wire formats are ported; any other
-    is refused, and ssm training stays refused (ROADMAP A3)."""
+    is refused.  ssm training builds its step, except with
+    ``use_pallas=True``: the SSD kernel has no backward, as the
+    reference's has none."""
     assert RunConfig(grad_compression="bf16").grad_compression == "bf16"
     assert _tiny(ParallelContext(dgrad_rs_bf16=True)).ctx.dgrad_rs_bf16
     with pytest.raises(ValueError, match="grad_compression"):
         RunConfig(grad_compression="fp8")
-    ssm = build_model(get_reduced("mamba2-1.3b").model, ParallelContext(),
-                      RunConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item A3: ssm training"):
-        build_train_step(ssm, ShapeSpec("t", 16, 2, "train"))
+    shape = ShapeSpec("t", 16, 2, "train")
+    for use_pallas in (False, True):
+        ssm = build_model(get_reduced("mamba2-1.3b").model,
+                          ParallelContext(), RunConfig(use_pallas=use_pallas),
+                          device="cpu")
+        if not use_pallas:
+            build_train_step(ssm, shape)
+            continue
+        with pytest.raises(NotImplementedError, match="no custom_vjp"):
+            build_train_step(ssm, shape)
