@@ -22,8 +22,10 @@ non-zero and prints no result:
    decode with random tables, mixed positions with scratch slots, window 0
    / 64, a non-uniform kv_map, block sizes 8 / 16, and the split kernel's
    edges (a 256-page table with short positions, a window crossing a split
-   boundary, every q head on one kv head), launched twice giving the same
-   bits; the SSD intra-chunk pass
+   boundary, every q head on one kv head) and the models' contiguous GQA
+   map (yi-6b's group of 8 at D 128, smollm-360m's group of 3 at D 64, the
+   draft's decode), launched twice giving the same bits; the SSD
+   intra-chunk pass
    at (H, P, N) = (64, 64, 128) and (4, 16, 16), Q in {256, 250, 143, 16,
    1}, B in {1, 2}, nc in {1, 8}, mild and steep decay, and launched twice
    giving the same bits);
@@ -32,8 +34,9 @@ non-zero and prints no result:
    at yi-6b's per-rank projection shapes at q = 2 and at one rank (prefill
    and decode rows), at smollm-360m's train projections and mamba2-1.3b's
    prefill and decode projections at one rank and per rank at q = 2
-   (partial G tiles), ragged E in {1, 3,
-   1000}, T in {1, 2, 4}, the wgmma route's edges (E in {17, 64, 65, 129,
+   (partial G tiles), the engine's features' rows (yi-6b's speculative
+   verify, 8 x 5 = 40; smollm-360m drafting, decode E 8 and catch-up
+   chunks 8 x 16), ragged E in {1, 3, 1000}, T in {1, 2, 4}, the wgmma route's edges (E in {17, 64, 65, 129,
    1000}, F 2000, G in {64, 320, 960, 5504}, F and G below 64), bases 16
    but not 128 bytes past an allocation, F and G not multiples of 8, bf16
    and fp32: a repeat launch gives the same bits, the bf16 epilogue gives
@@ -72,6 +75,25 @@ non-zero and prints no result:
    tokens and 32 new tokens each; the kernels' launch counters are zeroed
    just before and read just after, and must show the kernels ran (7
    tesseract_mm launches per layer of every prefill and decode step);
+   serve features: fp32 at full width and 4 layers, yi-6b with
+   smollm-360m (4 layers, vocab 64000) as the draft, 8 requests behind a
+   250-token system prompt through 4 slots: greedy ids identical from the
+   plain engine, the prefix cache with chunked prefill of 256, n-gram and
+   draft speculation (k 4); 8 slots x 5 verify rows after ~1000-token
+   prefills against 5 decode steps fed the same tokens (within 1e-4 of
+   max); then bf16 at full depth with the full smollm-360m draft: 16
+   requests of a 1024-token system prompt and 64-448 seeded suffix tokens,
+   32 new tokens, 8 slots, 2048 blocks of 16, chunk 256, with the cache
+   on, then also with the draft speculating (k 4): every request finished,
+   prefix hits, the launches exact (no flash launch; #1 = 7 x L x (chunk
+   steps + decode steps + verify rounds) + 7 x L_d x (the draft's chunk
+   and decode steps), #6 = L x decode steps + L_d x draft decode steps),
+   tokens/s, TTFT and ITL p50/p99, hit rate, copy-on-write splits,
+   acceptance, tokens per slot-round and peak memory logged; the verify
+   rows within 1e-1 of max (two summation orders apart from a decode
+   step, each worth up to 5e-2; the decode step's #6 against its plain
+   version logged beside it) and argmax equal wherever the decode's top-2
+   margin exceeds that;
 11. train: smollm-360m at full width and depth, fp32 params, bf16 compute,
    seq 2048 x batch 8, 10 steps through runtime/train_loop.train with the
    launch counters zeroed just before: finite losses starting near
@@ -188,6 +210,24 @@ MM_TOL = 1e-4
 DENSE_MM = 7                 # SUMMA contractions per dense layer: wq, wk,
                              # wv, wo, gate, up, down
 SSM_MM = 4                   # per ssm layer: w_z, w_x, w_dt, w_out
+# the engine's features (phase_serve_features): fp32 at full width and
+# FEATURE_FP32_LAYERS layers; then bf16 at full depth, FEATURE_REQUESTS
+# requests behind one FEATURE_SYSTEM-token system prompt with seeded
+# suffixes of FEATURE_SUFFIX tokens, chunked prefill of FEATURE_CHUNK and
+# speculation with smollm-360m drafting FEATURE_SPEC_K tokens a round
+FEATURE_FP32_LAYERS = 4
+FEATURE_SYSTEM, FEATURE_SUFFIX = 1024, (64, 448)
+FEATURE_REQUESTS, FEATURE_NEW = 16, 32
+FEATURE_CHUNK, FEATURE_SPEC_K = 256, 4
+# verify rows vs the plain decode step at each row's position, of max
+# |logit|.  In bf16 at full depth a verify row differs from the decode step
+# in two summation orders, each of which alone moves the logits by up to
+# BF16_MODEL_TOL (flash vs plain attention in phase_bf16_parity; #6 vs the
+# plain paged attention, which _verify_rows measures beside it): the
+# projections' route (wgmma at 8 x (k + 1) rows, the skinny kernel at 8)
+# and the attention (chunk_attention's fp32 softmax with P rounded to bf16,
+# the reference's, vs #6's fp32 P); so the bound is twice that
+VERIFY_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-1}
 # tensor-core kernel -> instances (D 64 and 128 for flash) in the build
 TENSOR_CORE_KERNELS = {"flash_fwd_mma_kernel": 2, "flash_dkv_mma_kernel": 2,
                        "flash_dq_mma_kernel": 2,
@@ -528,11 +568,12 @@ def _flash_skip_cases(gen, Hq, Hkv, D, dtype, worst):
 
 
 def _paged_inputs(gen, Hq, Hkv, D, bs, dtype, max_len=2048, pos=None,
-                  one_kv=False):
+                  one_kv=False, contiguous=False):
     """(q, pool_k, pool_v, table, pos, kv_map) for 8 slots over ``max_len``
     positions of ``bs``-position pages: random tables, slots 0 and 7
     retired (all scratch, pos 0), a random kv_map (or every q head sent to
-    the last kv head, ``one_kv``)."""
+    the last kv head, ``one_kv``, or the models' contiguous GQA map,
+    ``contiguous``: q head h on kv head h // (Hq / Hkv))."""
     B = 8
     nb = max_len // bs
     P = B * nb + 1
@@ -547,6 +588,9 @@ def _paged_inputs(gen, Hq, Hkv, D, bs, dtype, max_len=2048, pos=None,
                            dtype=torch.int32)
     if one_kv:
         kv_map.fill_(Hkv - 1)
+    if contiguous:
+        kv_map = (torch.arange(Hq, device="cuda", dtype=torch.int32)
+                  // (Hq // Hkv))
     q = randn(gen, B, Hq, D, dtype=dtype)
     pk = randn(gen, P, bs, Hkv, D, dtype=dtype)
     pv = randn(gen, P, bs, Hkv, D, dtype=dtype)
@@ -577,14 +621,20 @@ PAGED_SPLIT_CASES = (
     ("window crossing a split boundary",
      dict(bs=16, window=100, pos=[300, 520, 1030, 2000, 257, 700, 1500, 0])),
     ("every q head to one kv head",
-     dict(bs=16, window=0, one_kv=True)))
+     dict(bs=16, window=0, one_kv=True)),
+    # the models' own map: yi-6b's group of 8 at D 128, and smollm-360m's
+    # group of 3 at D 64 (the draft's decode steps)
+    ("contiguous GQA map",
+     dict(bs=16, window=0, contiguous=True,
+          pos=[0, 17, 130, 255, 600, 1029, 1503, 0])))
 
 
 def _model(arch, param_dtype, compute_dtype, attn_impl, layers=None,
-           **run_kw):
-    """Full-width ``arch`` on the card with random weights from seed 0
-    (``layers`` cuts the depth; remat off unless ``run_kw`` says
-    otherwise: the train phases keep every activation)."""
+           vocab=None, seed=0, **run_kw):
+    """Full-width ``arch`` on the card with random weights from ``seed``
+    (``layers`` cuts the depth, ``vocab`` replaces the vocabulary; remat
+    off unless ``run_kw`` says otherwise: the train phases keep every
+    activation)."""
     import dataclasses
     from repro_torch.configs.base import RunConfig
     from repro_torch.core.api import ParallelContext
@@ -592,10 +642,12 @@ def _model(arch, param_dtype, compute_dtype, attn_impl, layers=None,
     cfg = get_arch(arch).model
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    if vocab is not None:
+        cfg = dataclasses.replace(cfg, vocab_size=vocab)
     run = RunConfig(param_dtype=param_dtype, compute_dtype=compute_dtype,
                     attn_impl=attn_impl, **{"remat": "none", **run_kw})
     ctx = ParallelContext(mode="tesseract", attn_impl=attn_impl)
-    return build_model(cfg, ctx, run, device="cuda", seed=0)
+    return build_model(cfg, ctx, run, device="cuda", seed=seed)
 
 
 def _prefill_decode(model, prompt, steps, feed=None):
@@ -1272,6 +1324,243 @@ def phase_serve():
     return launches, counts
 
 
+def _feature_prompts(vocab, n, system_len, suffix, seed):
+    """``n`` prompts: one ``system_len``-token system prompt, then seeded
+    suffixes of ``suffix`` = (fewest, most) tokens."""
+    rng = np.random.RandomState(seed)
+    system = rng.randint(0, vocab, system_len).tolist()
+    return [system + rng.randint(0, vocab, rng.randint(suffix[0],
+                                                       suffix[1] + 1)).tolist()
+            for _ in range(n)]
+
+
+def _feature_run(model, prompts, new, draft=None, n_slots=8,
+                 num_blocks=2048, max_seq_len=1536, **features):
+    """The prompts through an InferenceEngine with ``features`` (greedy,
+    ``new`` tokens each), the launch counters zeroed just before and read
+    just after.  Returns (engine, ids per request, launches, wall s, peak
+    device memory GiB)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serve import EngineConfig, InferenceEngine, SamplingParams
+    from repro_torch.serve.scheduler import FINISHED
+    engine = InferenceEngine(model, EngineConfig(
+        n_slots=n_slots, block_size=16, num_blocks=num_blocks,
+        max_seq_len=max_seq_len, **features), device=model.device,
+        draft_model=draft)
+    reqs = [engine.add_request(p, SamplingParams(max_new_tokens=new))
+            for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    res = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kops.LAUNCHES)
+    ids = [res[r.rid] for r in reqs]
+    s = engine.stats
+    for r, toks in zip(reqs, ids):
+        check(r.state == FINISHED and len(toks) == new
+              and all(0 <= t < model.cfg.vocab_size for t in toks),
+              f"request {r.rid} ended {r.state} with {len(toks)} tokens")
+    check(s.failed == 0 and s.nan_quarantines == 0,
+          f"failures {s.failed}, quarantines {s.nan_quarantines}")
+    return engine, ids, launches, wall, torch.cuda.max_memory_allocated() \
+        / 2**30
+
+
+def _check_feature_launches(what, engine, launches):
+    """With chunking (or the cache) on, no flash launch, and exactly: #1 =
+    7 x L x (chunk steps + decode steps + verify rounds) + 7 x L_d x (the
+    draft's catch-up chunk steps + its decode steps), #6 = L x decode steps
+    + L_d x the draft's decode steps."""
+    s, d = engine.stats, engine._draft
+    L = engine.model.cfg.num_layers
+    Ld = d.model.cfg.num_layers if d else 0
+    dc, dd = (d.chunk_steps, d.decode_steps) if d else (0, 0)
+    mm = DENSE_MM * (L * (s.chunk_steps + s.decode_steps + s.spec_rounds)
+                     + Ld * (dc + dd))
+    paged = L * s.decode_steps + Ld * dd
+    check(launches["tesseract_mm"] == mm
+          and launches["paged_attention"] == paged
+          and launches["flash_fwd"] == 0 and s.prefills == 0
+          and launches["tesseract_mm_stream"] == 0,
+          f"{what}: launches {launches} != tesseract_mm {mm}, "
+          f"paged_attention {paged}, flash_fwd 0 (chunk steps "
+          f"{s.chunk_steps}, decode steps {s.decode_steps}, verify rounds "
+          f"{s.spec_rounds}, draft chunk/decode steps {dc}/{dd})")
+    return dict(chunk_steps=s.chunk_steps, decode_steps=s.decode_steps,
+                verify_rounds=s.spec_rounds, draft_chunk_steps=dc,
+                draft_decode_steps=dd)
+
+
+def _verify_rows(model, n_slots, prompt_len, k, what):
+    """``verify_chunk_paged`` of k + 1 tokens a slot for ``n_slots`` slots
+    after ``prompt_len``-token prefills, against k + 1 plain decode steps
+    fed the same tokens from the same pool: row c vs the decode step at
+    position prompt_len + c.  Returns the worst error of max |logit|."""
+    from repro_torch.runtime.steps import paged_reshard
+    bs, W, dev = 16, k + 1, model.device
+    bucket = -(-prompt_len // bs) * bs
+    nb = (bucket + W) // bs + 1
+    rng = np.random.RandomState(5)
+    vocab = model.cfg.vocab_size
+    lens = prompt_len - 7 * np.arange(n_slots)
+    tokens = np.zeros((n_slots, bucket), np.int32)
+    for s, n in enumerate(lens):
+        tokens[s, :n] = rng.randint(0, vocab, n)
+    tables = (1 + torch.arange(n_slots * nb, dtype=torch.int32,
+                               device=dev)).reshape(n_slots, nb)
+    shape, dt = model.paged_cache_shape(n_slots * nb + 1, bs)
+    pool = {k_: torch.zeros(shape, dtype=dt, device=dev)
+            for k_ in ("k", "v")}
+    lengths = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    _, pcache = model.prefill(torch.from_numpy(tokens).to(dev), lengths)
+    paged_reshard(pool, pcache, tables[:, :bucket // bs])
+    del pcache
+    ids = torch.from_numpy(rng.randint(0, vocab, (n_slots, W))
+                           .astype(np.int32)).to(dev)
+    rows = model.verify_chunk_paged({k_: v.clone() for k_, v in
+                                     pool.items()}, tables, ids, lengths,
+                                    torch.full_like(lengths, W))
+    rows = rows[:, :, :vocab].float()
+
+    def decode(impl):
+        """[n_slots, W, vocab]: W decode steps fed ids from the pool, the
+        attention through #6 ("pallas") or its plain version ("jnp")."""
+        model.ctx = model.ctx.replace(attn_impl=impl)
+        p, out = {k_: v.clone() for k_, v in pool.items()}, []
+        for c in range(W):
+            out.append(model.decode_paged(p, tables,
+                                          ids[:, c:c + 1].contiguous(),
+                                          lengths + c)[:, :vocab].float())
+        model.ctx = model.ctx.replace(attn_impl="auto")
+        return torch.stack(out, 1)
+
+    dec, dec_plain = decode("pallas"), decode("jnp")
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return [max_err(a[:, c], b[:, c]) / float(b[:, c].abs().max())
+                for c in range(W)]
+
+    errs = rel(rows, dec)
+    top2 = dec.topk(2, dim=-1).values
+    tol = VERIFY_TOL[model.cdt]
+    sure = (top2[..., 0] - top2[..., 1]) > tol * dec.abs().amax(-1)
+    same = rows.argmax(-1) == dec.argmax(-1)
+    log(f"  verify rows {what} ({n_slots} slots x {W} rows after "
+        f"{prompt_len - 7 * (n_slots - 1)}..{prompt_len}-token prefills) vs "
+        f"decode steps (#6): error of max |logit| per row "
+        f"{['%.2e' % e for e in errs]}, argmax equal {int(same.sum())}/"
+        f"{n_slots * W} ({int(sure.sum())} rows with a top-2 margin above "
+        f"{tol}, all equal there: {bool(same[sure].all())}); vs decode "
+        f"steps through the plain paged attention "
+        f"{['%.2e' % e for e in rel(rows, dec_plain)]}; #6 vs plain "
+        f"{['%.2e' % e for e in rel(dec, dec_plain)]}")
+    check(bool(same[sure].all()), f"verify rows {what}: argmax differs "
+                                  f"where the decode's margin exceeds {tol}")
+    del pool
+    return max(errs)
+
+
+def phase_serve_features():
+    """The engine's features on the card: the prefix cache, chunked
+    prefill and speculation (n-gram and a smollm-360m draft)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    # fp32 at full width, 4 layers: the features leave the greedy ids as
+    # the plain engine's
+    target = _model(ARCH, "float32", "float32", "auto",
+                    layers=FEATURE_FP32_LAYERS)
+    vocab = target.cfg.vocab_size
+    draft = _model(TRAIN_ARCH, "float32", "float32", "auto",
+                   layers=FEATURE_FP32_LAYERS, vocab=vocab, seed=7)
+    # a 250-token system prompt ends 10 tokens into a 16-position page:
+    # every later hit splits that page copy-on-write
+    prompts = _feature_prompts(vocab, 8, 250, (16, 200), seed=3)
+    small = dict(n_slots=4, num_blocks=512, max_seq_len=512)
+    ids = {}
+    for name, draft_model, features in (
+            ("plain", None, {}),
+            ("cache", None, dict(prefix_cache=True,
+                                 prefill_chunk=FEATURE_CHUNK)),
+            ("ngram", None, dict(spec_k=FEATURE_SPEC_K, spec_mode="ngram")),
+            ("draft", draft, dict(spec_k=FEATURE_SPEC_K,
+                                  spec_mode="draft"))):
+        eng, ids[name], launches, _, _ = _feature_run(
+            target, prompts, 12, draft_model, **small, **features)
+        if name == "cache":
+            check(eng.stats.prefix_hits > 0 and eng.stats.cow_splits > 0,
+                  f"fp32 cache run: no hit or no copy-on-write split")
+            _check_feature_launches("fp32 cache", eng, launches)
+        del eng
+    check(ids["cache"] == ids["plain"] and ids["ngram"] == ids["plain"]
+          and ids["draft"] == ids["plain"],
+          f"fp32 greedy ids differ between plain, cache, ngram and draft: "
+          f"{ids}")
+    err = _verify_rows(target, 8, 1000, FEATURE_SPEC_K, "fp32")
+    check(err <= VERIFY_TOL[torch.float32],
+          f"fp32 verify rows differ from decode by {err:.3g} of max")
+    log(f"serve features fp32 ({ARCH} + {TRAIN_ARCH} draft, full width, "
+        f"{FEATURE_FP32_LAYERS} layers): ids identical across plain, cache "
+        f"(chunk {FEATURE_CHUNK}), ngram and draft spec (k "
+        f"{FEATURE_SPEC_K}); verify rows within {err:.2e} of max")
+    del target, draft
+    torch.cuda.empty_cache()
+
+    # bf16 at full depth: the shared-prompt workload with the cache on,
+    # then with the draft speculating too
+    target = _model(ARCH, "bfloat16", "bfloat16", "auto")
+    draft = _model(TRAIN_ARCH, "bfloat16", "bfloat16", "auto",
+                   vocab=target.cfg.vocab_size, seed=7)
+    prompts = _feature_prompts(target.cfg.vocab_size, FEATURE_REQUESTS,
+                               FEATURE_SYSTEM, FEATURE_SUFFIX, seed=4)
+    runs = {}
+    for name, draft_model, features in (
+            ("cache", None, {}),
+            ("cache+draft", draft, dict(spec_k=FEATURE_SPEC_K,
+                                        spec_mode="draft"))):
+        eng, got, launches, wall, peak = _feature_run(
+            target, prompts, FEATURE_NEW, draft_model, prefix_cache=True,
+            prefill_chunk=FEATURE_CHUNK, **features)
+        steps = _check_feature_launches(f"bf16 {name}", eng, launches)
+        s = eng.stats
+        ttft, itl = s.ttft_percentiles(), s.itl_percentiles()
+        # the 1024-token system prompt fills 64 whole pages: hits share
+        # them, and a split would need two suffixes to share a first token
+        check(s.prefix_hits > 0, f"bf16 {name}: no prefix hit")
+        runs[name] = got
+        out[name] = dict(
+            wall_s=wall, tokens_per_s=s.tokens / wall,
+            ttft_p50_ms=ttft["p50_ms"], ttft_p99_ms=ttft["p99_ms"],
+            itl_p50_ms=itl["p50_ms"], itl_p99_ms=itl["p99_ms"],
+            hit_rate=s.cache_hit_rate(), prefix_hits=s.prefix_hits,
+            cow_splits=s.cow_splits, evictions=s.cache_evictions,
+            acceptance=s.acceptance_rate(),
+            tokens_per_slot_round=s.tokens_per_round(),
+            peak_gib=peak, launches=launches, **steps)
+        log(f"serve features bf16 {name}: {ARCH} L={target.cfg.num_layers}"
+            + (f" + {TRAIN_ARCH} draft L={draft.cfg.num_layers} k "
+               f"{FEATURE_SPEC_K}" if draft_model else "")
+            + f", {FEATURE_REQUESTS} requests = {FEATURE_SYSTEM}-token "
+            f"system prompt + {FEATURE_SUFFIX[0]}-{FEATURE_SUFFIX[1]} "
+            f"suffix tokens, {FEATURE_NEW} new, chunk {FEATURE_CHUNK}: "
+            f"{json.dumps(out[name])}")
+        del eng
+    same = sum(a == b for a, b in zip(runs["cache"], runs["cache+draft"]))
+    log(f"  bf16 ids: {same}/{FEATURE_REQUESTS} requests identical between "
+        f"the cache run and the cache + draft run (decode through #6 vs "
+        f"the verify trunk's plain attention; reported, not asserted)")
+    err = _verify_rows(target, 8, 1000, FEATURE_SPEC_K, "bf16")
+    check(err <= VERIFY_TOL[torch.bfloat16],
+          f"bf16 verify rows differ from decode by {err:.3g} of max")
+    del target, draft
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_decode(engine, rng, steps=8):
     """Where a decode step's time goes, after the counted run: 8 resident
     1000-token requests, ``steps`` engine steps under torch.profiler; device
@@ -1423,7 +1712,11 @@ def _path_mm_shapes():
     four-card mesh [1, 1, 2, 2] at that traffic (F and G halved; the
     prefill's rows over the two sequence shards, the decode's batch over
     them).  Their G of 960, 320, 64 and 32 end in a partial 128-wide tile,
-    which yi-6b's widths never do."""
+    which yi-6b's widths never do.  The engine's features add yi-6b's
+    speculative verify rows (8 slots x (FEATURE_SPEC_K + 1) = 40, the wgmma
+    route below one 64-row tile; its chunk rows, 8 x 256, are the one-rank
+    prefill shape already checked) and smollm-360m as the draft: its decode
+    rows (E 8) and catch-up chunk rows (8 x 16)."""
     from repro_torch.models.registry import get_arch
     sm, mb = get_arch(TRAIN_ARCH).model, get_arch(SSM_ARCH).model
     h, qd = sm.d_model, sm.num_heads * sm.resolved_head_dim
@@ -1433,8 +1726,15 @@ def _path_mm_shapes():
     ssm = {(mb.d_model, di), (mb.d_model, di // mb.ssm_head_dim),
            (di, mb.d_model)}
     q = 2
-    return ([(1, E, F, G) for E in (TRAIN_SEQ * TRAIN_BATCH, 2 * 1024)
-             for F, G in sorted(train)]
+    yi = get_arch(ARCH).model
+    yd = yi.num_heads * yi.resolved_head_dim
+    verify = {(yi.d_model, yd), (yi.d_model, yi.num_kv_heads
+                                 * yi.resolved_head_dim),
+              (yd, yi.d_model), (yi.d_model, yi.d_ff), (yi.d_ff, yi.d_model)}
+    return ([(1, 8 * (FEATURE_SPEC_K + 1), F, G) for F, G in sorted(verify)]
+            + [(1, E, F, G) for E in (8, 8 * 16) for F, G in sorted(train)]
+            + [(1, E, F, G) for E in (TRAIN_SEQ * TRAIN_BATCH, 2 * 1024)
+               for F, G in sorted(train)]
             + [(1, E, F, G)
                for E in (SSM_BATCH * SSM_PROMPT, SSM_BATCH, 2 * 1000, 2)
                for F, G in sorted(ssm)]
@@ -2357,6 +2657,7 @@ def main():
         phase(phase_ssm_parity)
         phase(phase_ssd_shards, worst)
         launches, counts = phase(phase_serve)
+        phase(phase_serve_features)
         train_launches, train_losses, train_peak = phase(phase_train)
         phase(phase_train_features, train_losses, train_peak)
         phase(phase_train_restart, train_losses)

@@ -16,6 +16,20 @@ GPUs under ``torchrun``, or on the CPU with ``--device cpu``.
 (and ``--mode megatron1d --cols 4`` in place of ``--rows 2 --cols 2`` for
 the 1-D baseline on the same four cards)
 
+Shared-prompt serving and speculative decoding (the engine's features):
+``--prefix-cache`` (radix prefix cache; chunked prefill of
+``--prefill-chunk`` positions, or an auto width), ``--spec-k K`` proposals
+a round from ``--spec-mode`` ngram or draft (``--draft-config``, an arch
+built reduced iff ``--reduced``, on the same mesh, with the target's
+vocab, its weights from seed 7).  ``--system-prompt-len N`` puts one
+N-token system prompt ahead of every request's prompt:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
+        --dtype bfloat16 --requests 16 --n-slots 8 --system-prompt-len 1024 \
+        --prompt-lens 64,192,320,448 --new-tokens 32 --block-size 16 \
+        --num-blocks 2048 --max-seq-len 2048 --prefix-cache \
+        --prefill-chunk 256 [--spec-k 4 --draft-config smollm-360m]
+
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --arch yi-6b --reduced --rows 2 --cols 2 --device cpu \
         --prompt-lens 8,16 --new-tokens 8
@@ -89,6 +103,29 @@ def main(argv=None):
                     help="per-request time-to-first-token budget (0 = none)")
     ap.add_argument("--max-waiting", type=int, default=0,
                     help="bound on the admission queue (0 = unbounded)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache: shared prompt prefixes reuse "
+                         "refcounted pool pages, divergent tails split "
+                         "copy-on-write")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill width interleaved with decode "
+                         "steps (0 = monolithic bucketed prefill; the "
+                         "prefix cache auto-chunks when 0)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: proposals verified per "
+                         "engine step (0 = plain decode)")
+    ap.add_argument("--spec-mode", default="auto",
+                    choices=("auto", "draft", "ngram"),
+                    help="proposal source: a draft model (--draft-config) "
+                         "or the n-gram prompt lookup; auto picks draft "
+                         "when one is configured")
+    ap.add_argument("--draft-config", default="",
+                    help="arch name of the draft model (e.g. smollm-360m); "
+                         "built reduced iff --reduced, on the same mesh, "
+                         "with vocab_size set to the target's")
+    ap.add_argument("--system-prompt-len", type=int, default=0,
+                    help="one shared system prompt of this many tokens "
+                         "ahead of every request's prompt")
     ap.add_argument("--profile-steps", type=int, default=0,
                     help="after the run, profile this many decode steps of "
                          "n-slots 1000-token requests on rank 0 (an ssm "
@@ -125,17 +162,30 @@ def main(argv=None):
     if arch.model.family == "ssm":
         _serve_static(args, model, dev)
         return model
+    draft = None
+    if args.draft_config:
+        import dataclasses
+        darch = (get_reduced(args.draft_config) if args.reduced
+                 else get_arch(args.draft_config))
+        # the verify step judges the proposals in the target's vocab
+        draft = build_model(dataclasses.replace(
+            darch.model, vocab_size=model.cfg.vocab_size), ctx, run,
+            device=dev, seed=7, mesh=mesh)
     engine = InferenceEngine(model, EngineConfig(
         n_slots=args.n_slots, block_size=args.block_size,
         num_blocks=args.num_blocks, max_seq_len=args.max_seq_len,
-        max_waiting=args.max_waiting), device=dev)
+        max_waiting=args.max_waiting, prefix_cache=args.prefix_cache,
+        prefill_chunk=args.prefill_chunk, spec_k=args.spec_k,
+        spec_mode=args.spec_mode), device=dev, draft_model=draft)
 
     plens = [int(x) for x in args.prompt_lens.split(",")]
     rng = np.random.RandomState(0)
+    system = rng.randint(0, model.cfg.vocab_size,
+                         (args.system_prompt_len,)).tolist()
     reqs = []
     for i in range(args.requests):
-        prompt = rng.randint(0, model.cfg.vocab_size,
-                             (plens[i % len(plens)],)).tolist()
+        prompt = system + rng.randint(0, model.cfg.vocab_size,
+                                      (plens[i % len(plens)],)).tolist()
         reqs.append(engine.add_request(
             prompt,
             SamplingParams(temperature=args.temperature, top_k=args.top_k,
@@ -165,6 +215,7 @@ def main(argv=None):
         lat = s.latency_percentiles()
         ttft, itl = s.ttft_percentiles(), s.itl_percentiles()
         print(f"steps={s.steps} prefills={s.prefills} "
+              f"decode_steps={s.decode_steps} "
               f"preemptions={s.preemptions} tokens={s.tokens} "
               f"tokens/s={s.tokens_per_s():.1f} "
               f"p50={lat['p50_ms']:.1f}ms p95={lat['p95_ms']:.1f}ms "
@@ -176,6 +227,24 @@ def main(argv=None):
               f"shed={s.shed} failed={s.failed} "
               f"nan_quarantines={s.nan_quarantines} "
               f"batch_shrinks={s.batch_shrinks}")
+        if args.prefix_cache or args.prefill_chunk:
+            print(f"prefix: hit_rate={s.cache_hit_rate():.3f} "
+                  f"hits={s.prefix_hits}/{s.prefix_lookups} "
+                  f"tokens_reused={s.prefix_tokens_reused}/"
+                  f"{s.prefix_tokens_total} cow_splits={s.cow_splits} "
+                  f"evictions={s.cache_evictions} "
+                  f"prefill_chunks={s.prefill_chunks} "
+                  f"chunk_steps={s.chunk_steps} "
+                  f"cached_nodes={len(engine.prefix) if engine.prefix else 0}")
+        if args.spec_k:
+            d = engine._draft
+            print(f"spec: mode={engine.spec_mode} k={args.spec_k} "
+                  f"rounds={s.spec_rounds} proposed={s.spec_proposed} "
+                  f"accepted={s.spec_accepted} committed={s.spec_committed} "
+                  f"acceptance={s.acceptance_rate():.3f} "
+                  f"tokens/slot-round={s.tokens_per_round():.3f}"
+                  + (f" draft_chunk_steps={d.chunk_steps} "
+                     f"draft_decode_steps={d.decode_steps}" if d else ""))
         print(f"mesh: {ctx.mode} data={ctx.data} depth={ctx.depth} "
               f"rows={ctx.rows} cols={ctx.cols} matmul_schedule={ctx.matmul_schedule} "
               f"dtype={args.dtype}; launches per rank {launches}"

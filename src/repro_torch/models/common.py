@@ -3,9 +3,14 @@ MLP activations, the attention dispatchers and the paged-pool primitives.
 
 Attention tensors use the model layout [B, T, H, D].  The dispatchers route
 by ``attn_impl`` (kernels/ops.py): "pallas" to the kernel wrappers, "jnp" to
-the plain versions beside them.  The reference's ``decode_pos_mask`` and
-``paged_gather`` (the jnp decode path's hoisted mask and page gather) live
-inside ``kernels/paged_attention.py::paged_attention_plain``.
+the plain versions beside them.  The reference's ``decode_pos_mask`` (the
+jnp decode path's hoisted mask) lives inside
+``kernels/paged_attention.py::paged_attention_plain``.
+
+The chunked-prefill primitives at the end serve the engine's chunk and
+speculative-verify steps.  ``chunk_attention`` is plain PyTorch on every
+device: the reference computes it as a full-score fp32 masked softmax in
+jnp whatever ``attn_impl`` says, so it has no Pallas kernel to port.
 """
 from __future__ import annotations
 
@@ -118,3 +123,84 @@ def paged_attention(q, pool_k, pool_v, table, pos, *, kv_map,
     fn = paged_kernel if path == "pallas" else paged_attention_plain
     return fn(q.contiguous(), pool_k, pool_v, table, pos, kv_map,
               local_window=local_window, softmax_scale=softmax_scale)
+
+
+def paged_gather(pool_k, pool_v, table, kv_map=None):
+    """Each request's pages as contiguous K/V [B, nb * bs, H, D] in logical
+    position order.  pool_k/pool_v: [P, bs, Hkv, D]; table: [B, nb] local
+    block ids; ``kv_map`` ([Hq] q head -> kv head) expands the heads in the
+    same gather (H = Hq), else H = Hkv."""
+    B, nb = table.shape
+    idx = table.long()
+    k, v = pool_k[idx], pool_v[idx]               # [B, nb, bs, Hkv, D]
+    k = k.reshape(B, nb * pool_k.shape[1], *pool_k.shape[2:])
+    v = v.reshape(B, nb * pool_v.shape[1], *pool_v.shape[2:])
+    if kv_map is not None:
+        heads = kv_map.long()
+        k, v = k[:, :, heads], v[:, :, heads]
+    return k, v
+
+
+# ---------------------------------------------------------------------------
+# Chunked-prefill primitives (the engine's prefix cache, chunk interleave
+# and speculative verify).  A chunk step processes C consecutive positions
+# per batch slot against the same paged pool the decode step uses; per-slot
+# chunk starts differ, so positions and masks carry a [B, C] batch axis.
+# ---------------------------------------------------------------------------
+
+def chunk_pos_mask(positions, S: int, local_window: int = 0):
+    """[B, C, S] causal validity mask of a chunk at absolute q positions
+    ``positions`` [B, C]; position-only, so computed once for all layers."""
+    kv = torch.arange(S, device=positions.device)
+    mask = kv[None, None, :] <= positions[:, :, None]
+    if local_window > 0:
+        mask &= kv[None, None, :] > (positions[:, :, None] - local_window)
+    return mask
+
+
+def paged_chunk_indices(table, positions, bs: int, valid):
+    """(blk, off) [B, C] scatter coordinates of a whole chunk.  Padded
+    entries (``valid`` False) go to the scratch block (local id 0) at
+    offset 0, where garbage is masked by construction."""
+    nb = table.shape[1]
+    blk_i = (positions // bs).clamp(0, nb - 1).long()
+    blk = table.gather(1, blk_i).long()
+    blk = torch.where(valid, blk, torch.zeros_like(blk))
+    off = torch.where(valid, positions % bs, torch.zeros_like(positions))
+    return blk, off.long()
+
+
+def paged_update_chunk(pool, new_k, new_v, idx):
+    """Write a chunk's K/V [B, C, Hkv, D] into the layer pool {"k", "v":
+    [P, bs, Hkv, D]} at ``idx`` = paged_chunk_indices(...), in place like
+    ``paged_update`` (the reference returns an updated copy)."""
+    blk, off = idx
+    pool["k"][blk, off] = new_k.to(pool["k"].dtype)
+    pool["v"][blk, off] = new_v.to(pool["v"].dtype)
+
+
+def chunk_attention(q, k_cache, v_cache, *, mask, softmax_scale=None):
+    """Causal attention of a C-token chunk against contiguous K/V.
+
+    q: [B, C, Hq, D]; k_cache/v_cache: [B, S, H, D] (H == Hq when the GQA
+    map was folded into the gather, else Hkv with contiguous grouping);
+    mask: [B, C, S] (``chunk_pos_mask``).  A full-score fp32 masked softmax
+    with no online accumulation, so the result does not depend on how a
+    prompt was split into chunks; the probabilities are rounded to V's
+    dtype before the second product, as the reference's are.  Fully
+    masked rows (padding) come out zero."""
+    B, C, Hq, D = q.shape
+    H = k_cache.shape[2]
+    scale = softmax_scale if softmax_scale is not None else D ** -0.5
+    g = Hq // H
+    qg = q.float().reshape(B, C, H, g, D)
+    s = torch.einsum("bchgd,bshd->bhgcs", qg, k_cache.float()) * scale
+    s.masked_fill_(~mask[:, None, None], float("-inf"))
+    row_has = mask.any(-1)[:, None, None, :, None]       # [B, 1, 1, C, 1]
+    s.masked_fill_(~row_has, 0.0)
+    p = torch.softmax(s, dim=-1)
+    del s
+    p.masked_fill_(~row_has, 0.0)
+    out = torch.einsum("bhgcs,bshd->bchgd", p.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, C, Hq, v_cache.shape[-1]).to(q.dtype)

@@ -15,14 +15,15 @@ load by slicing alone (convert.py).  The layer stack is a Python loop over
 Serving entry points, without autograd, each taking the host-layout inputs
 every rank of the mesh passes alike: ``prefill`` (bucketed, right-padded
 prompts with true ``lengths``; the sequence sharded over the op set's
-sequence axes, ``ctx.seq_shard_axes``) and
-``decode_paged`` (one token per slot against the rank's KV group's
-partition of the paged pool, updated in place).  Training entry point,
+sequence axes, ``ctx.seq_shard_axes``), ``decode_paged`` (one token per
+slot against the rank's KV group's partition of the paged pool, updated
+in place), and ``prefill_chunk_paged`` / ``verify_chunk_paged`` (C
+positions per slot written into the pool and attended there: chunked
+prefill, the prefix cache and speculative verify).  Training entry point,
 on one rank or across the mesh: ``loss`` (the mean next-token
 cross-entropy of a batch, differentiable in every local parameter; the
 step syncs the gradients of replicated leaves, ``runtime/steps.py``).  The
-dense static decode loop and the chunked-prefill path are not ported yet
-(ROADMAP Queue A).
+dense static decode loop is not ported yet (ROADMAP Queue A).
 """
 from __future__ import annotations
 
@@ -435,6 +436,87 @@ class DenseLM(nn.Module):
             x = self._block_decode_paged(blk, x, pool_l, table, pos, ops,
                                          idx=idx, kv_map=kv_map)
         return self._logits(ops, self._final(ops, x))
+
+    def _block_chunk_paged(self, blk, x, pool_l, table, ops, *, positions,
+                           idx, mask, kv_map):
+        """Chunk analogue of ``_block_decode_paged``: write C new positions
+        per slot into the pool, then attend the whole chunk against the
+        slot's pages (update, then attend: a copy-on-write donor's stale
+        tail is overwritten before it could be read, and the causal mask
+        hides what the chunk did not reach)."""
+        h = self._norm(ops, x, blk.ln1, getattr(blk, "ln1b", None))
+        q, k, v = self._qkv(blk, h, ops, positions)
+        cm.paged_update_chunk(pool_l, k, v, idx)
+        kg, vg = cm.paged_gather(pool_l["k"], pool_l["v"], table, kv_map)
+        out = cm.chunk_attention(q, kg, vg, mask=mask)
+        del kg, vg
+        x = x + self._attn_out(blk, out, ops)
+        h2 = self._norm(ops, x, blk.ln2, getattr(blk, "ln2b", None))
+        return x + self._mlp(blk, h2, ops)
+
+    def _chunk_trunk(self, pool, table, ids, pos, lens):
+        """The trunk of ``prefill_chunk_paged`` and ``verify_chunk_paged``:
+        up to C positions per slot through every layer, their K/V written
+        into the pool.  Returns (the op set, final-normed hidden states
+        [B_loc, C, h_loc], this rank's lens).  The attention is
+        ``chunk_attention`` on every device, as the reference's chunk
+        trunk is its fp32 jnp path at any ``attn_impl``; the projections
+        run kernel #1 (#2 on the ring)."""
+        ops = make_ops(self.ctx, self.mesh, self.decode_plan(ids.shape[0]))
+        gaxes = kv_group_axes(self.ctx, ops.plan)
+        table = (ops.host_block(table, (gaxes, ()))
+                 - self.mesh.index(gaxes) * pool["k"].shape[1])
+        pos = ops.host_block(pos, (gaxes,))
+        lens = ops.host_block(lens, (gaxes,))
+        x = ops.embed(ops.host_block(ids, ops.tokens_in_axes()),
+                      self.embed).to(self.cdt)
+        C = x.shape[1]
+        bs = pool["k"].shape[2]
+        # position-only work, shared by every layer
+        ar = torch.arange(C, device=x.device, dtype=pos.dtype)
+        positions = pos[:, None] + ar
+        valid = ar[None, :] < lens[:, None]
+        idx = cm.paged_chunk_indices(table, positions, bs, valid)
+        mask = (cm.chunk_pos_mask(positions, table.shape[1] * bs,
+                                  self.cfg.local_window)
+                & valid[:, :, None])
+        kv_map = None if self.kv_shard else self._kv_map(x.device)
+        for i, blk in enumerate(self.blocks):
+            pool_l = {"k": pool["k"][i], "v": pool["v"][i]}
+            x = self._block_chunk_paged(blk, x, pool_l, table, ops,
+                                        positions=positions, idx=idx,
+                                        mask=mask, kv_map=kv_map)
+        return ops, self._final(ops, x), lens
+
+    @torch.no_grad()
+    def prefill_chunk_paged(self, pool, table, ids, pos, lens):
+        """Prefill C positions per slot straight into the block pool.
+
+        Host layout, the same on every rank: table [n_slots, nb] GLOBAL
+        block ids; ids [n_slots, C] chunk tokens (0-padded); pos [n_slots]
+        int32 chunk starts; lens [n_slots] int32 valid positions this
+        chunk (0 = idle slot).  Returns full-vocab logits [n_slots, v_pad]
+        float32 at each slot's last valid chunk position (meaningful for
+        the slots whose prompt completes in this chunk), the same on every
+        rank; the pool is updated in place."""
+        ops, x, lens = self._chunk_trunk(pool, table, ids, pos, lens)
+        last = (lens.long() - 1).clamp(0, x.shape[1] - 1)
+        xi = x.gather(1, last[:, None, None].expand(-1, 1, x.shape[-1]))
+        return self._logits(ops, xi)
+
+    @torch.no_grad()
+    def verify_chunk_paged(self, pool, table, ids, pos, lens):
+        """Speculative verify: the chunk trunk of ``prefill_chunk_paged``
+        with logits at every chunk position, [n_slots, C, v_pad].  Row c is
+        the target distribution of the token at position pos + c + 1, the
+        one a plain decode step would give after committing ids[:, :c+1].
+        The accepted proposals' K/V are in the pool already; a rejected
+        suffix needs no cleanup: the engine does not advance past it, so
+        it is masked by position and overwritten later."""
+        ops, x, _ = self._chunk_trunk(pool, table, ids, pos, lens)
+        B, C, h = x.shape
+        logits = self._logits(ops, x.reshape(B * C, 1, h))
+        return logits.reshape(ids.shape[0], C, -1)
 
 
 def run_blocks(blocks, x, block, remat_mode: str):

@@ -21,8 +21,9 @@ Sites and the kinds each accepts:
     serve.prefix evict | flush
 
 The port's train loop (``runtime/train_loop.py``) wires the ``train.*``
-and ``ckpt.*`` sites; the serve engine refuses a plan that names a
-``serve.*`` site (ROADMAP Queue A, item A3: the engine's fault sites).
+and ``ckpt.*`` sites, and the serve engine the ``serve.prefix`` site; the
+engine refuses a plan that names ``serve.step`` or ``serve.logits``
+(ROADMAP Queue A, item A3).
 
 A ``FaultInjector`` wraps a plan with once-per-occurrence semantics: each
 spec fires on its first ``attempts`` executions of its (site, step) and

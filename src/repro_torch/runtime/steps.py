@@ -4,9 +4,10 @@ Counterpart of ``repro.runtime.steps``.  The reference builds jitted
 ``shard_map`` steps over the mesh; PyTorch runs the model eagerly on every
 rank, so:
 
-- the serve steps are the model's own ``prefill`` and ``decode_paged``,
-  which the engine calls directly on every rank; only the reshard, which
-  is no model method, lives here (``paged_reshard``);
+- the serve steps are the model's own ``prefill``, ``decode_paged``,
+  ``prefill_chunk_paged`` and ``verify_chunk_paged``, which the engine
+  calls directly on every rank; only the pool's copies, which are no
+  model method, live here (``paged_reshard``, ``page_copy``);
 - ``build_train_step`` is the reference's flat-mesh train step
   (``build_train_step`` and ``zero_optimizer_step``): loss scaling,
   microbatch accumulation, the deferred gradient sync of replicated
@@ -63,6 +64,27 @@ def paged_reshard(pool, pcache, tables, *, block0: int = 0):
         dst = pool[leaf]
         src = pcache[leaf].reshape(L, B * (S // dst.shape[2]), *dst.shape[2:])
         dst[:, idx[keep]] = src[:, keep].to(dst.dtype)
+
+
+@torch.no_grad()
+def page_copy(pool, src, dst, *, block0: int = 0):
+    """Copy-on-write page copy: ``pool[leaf][:, dst] = pool[leaf][:, src]``
+    for every layer in one indexed copy per leaf, in place.  src/dst are
+    equal-length lists of GLOBAL block ids, the same on every rank; a pair
+    lies inside one KV group's partition, so this rank copies only the
+    pairs inside its own (global ids ``block0 .. block0 + P``), offset
+    subtracted, and the others are left to their ranks (the reference's
+    ``build_page_copy``, whose other groups copy scratch onto scratch)."""
+    P = pool["k"].shape[1]
+    pairs = [(s - block0, d - block0) for s, d in zip(src, dst)
+             if 0 <= s - block0 < P and 0 <= d - block0 < P]
+    if not pairs:
+        return
+    dev = pool["k"].device
+    s_idx = torch.tensor([s for s, _ in pairs], dtype=torch.long, device=dev)
+    d_idx = torch.tensor([d for _, d in pairs], dtype=torch.long, device=dev)
+    for leaf in ("k", "v"):
+        pool[leaf][:, d_idx] = pool[leaf][:, s_idx]
 
 
 def replicated_axes(spec) -> tuple:

@@ -35,9 +35,12 @@ class BlockPool:
 
     Allocation and liberation are O(1) list ops; ids are global.  The
     scheduler uses ``available`` for admission and preemption decisions.
-    Each allocated block has one holder (the reference's refcounts serve
-    its prefix cache, which is not ported); freeing a block that is not
-    allocated raises.
+
+    Blocks are refcounted so the prefix cache can share pages between
+    requests: ``alloc`` hands out blocks at count 1, ``ref`` adds a holder
+    and ``free`` drops one; the block returns to the freelist only when
+    its last holder releases it.  Over-release and ``ref`` of a free block
+    raise.
     """
 
     def __init__(self, n_groups: int, blocks_per_group: int):
@@ -51,7 +54,7 @@ class BlockPool:
         self._free = [list(range(g * blocks_per_group + 1,
                                  (g + 1) * blocks_per_group))
                       for g in range(n_groups)]
-        self._held = set()
+        self._rc = {}            # block id -> live holder count (absent == 0)
 
     def available(self, group: int) -> int:
         return len(self._free[group])
@@ -65,6 +68,9 @@ class BlockPool:
     def group_of(self, block_id: int) -> int:
         return block_id // self.blocks_per_group
 
+    def refcount(self, block_id: int) -> int:
+        return self._rc.get(block_id, 0)
+
     def alloc(self, group: int, n: int):
         """Pop ``n`` blocks from ``group``'s freelist; None if they don't fit."""
         free = self._free[group]
@@ -72,18 +78,31 @@ class BlockPool:
             return None
         out = free[:n]
         del free[:n]
-        self._held.update(out)
+        for b in out:
+            self._rc[b] = 1
         return out
 
+    def ref(self, block_ids) -> None:
+        """Add a holder to allocated blocks (prefix-cache sharing)."""
+        for b in block_ids:
+            if self._rc.get(b, 0) < 1:
+                raise ValueError(f"ref of unallocated block {b}")
+            self._rc[b] += 1
+
     def free(self, block_ids) -> None:
+        """Drop one holder per block; the last returns it to the freelist."""
         for b in block_ids:
             g = self.group_of(b)
             if b == self.scratch(g):
                 raise ValueError(f"cannot free scratch block {b}")
-            if b not in self._held:
+            rc = self._rc.get(b, 0)
+            if rc < 1:
                 raise ValueError(f"double free of block {b}")
-            self._held.remove(b)
-            self._free[g].append(b)
+            if rc == 1:
+                del self._rc[b]
+                self._free[g].append(b)
+            else:
+                self._rc[b] = rc - 1
 
 
 class PagedKVCache:

@@ -9,6 +9,13 @@ sampled row draws Gumbel noise from a ``torch.Generator`` seeded from
 the absolute position of the token being sampled: preemption + re-prefill
 replays the same trajectory.  These are not JAX's threefry bits, so a
 sampled trajectory differs from the reference's; greedy ones agree.
+
+Speculative decoding's rejection sampling (``spec_target_probs``,
+``spec_accept``; Leviathan et al. 2023) commits at every position a token
+distributed exactly as the plain sampler's.  Its accept (tag 1) and
+residual (tag 2) draws are keyed on (seed, position, tag), apart from the
+(seed, position) stream the plain sampler and the bonus token draw from,
+so a preempted request replays its accept/reject trajectory too.
 """
 from __future__ import annotations
 
@@ -87,6 +94,79 @@ def sample_tokens(logits, temperature, top_k, top_p, seed, position):
             gumbel = -torch.log(-torch.log(u.clamp(min=tiny)))
             out[i] = torch.argmax(lg[j] + gumbel)   # gumbel-max == categorical
     return out.cpu().numpy()
+
+
+def spec_target_probs(logits, temperature, top_k, top_p):
+    """logits [R, v_pad] -> [R, v_pad] float32: the post-mask distribution
+    each row's temperature > 0 draw in ``sample_tokens`` samples from
+    (temperature, then top-k, then top-p, then softmax), the target p of
+    the accept/reject test.  The parameters are scalars, shared by every
+    row (one request's verify rows)."""
+    lg = torch.as_tensor(logits, dtype=torch.float32)
+    rows = lg.shape[0]
+    lg = lg / max(float(temperature), 1e-6)
+    lg = mask_top_k(lg, np.full(rows, int(top_k), np.int32))
+    lg = mask_top_p(lg, np.full(rows, float(top_p), np.float32))
+    return torch.softmax(lg, dim=-1)
+
+
+def _spec_generator(seed: int, position: int, tag: int) -> torch.Generator:
+    """Host generator of the accept (tag 1) / residual (tag 2) draw at a
+    position: the (seed, position) key of ``_generator`` mixed with the
+    tag (splitmix64), so it never reads the plain sampler's stream."""
+    mask = (1 << 64) - 1
+    key = ((((int(seed) & 0xFFFFFFFF) << 32) | (int(position) & 0xFFFFFFFF))
+           + (int(tag) + 1) * 0x9E3779B97F4A7C15) & mask
+    key = ((key ^ (key >> 30)) * 0xBF58476D1CE4E5B9) & mask
+    key = ((key ^ (key >> 27)) * 0x94D049BB133111EB) & mask
+    return torch.Generator().manual_seed(key ^ (key >> 31))
+
+
+def spec_accept(row_probs, proposals, draft_probs, seed, pos0):
+    """Host-side accept/reject over one slot's verify rows.
+
+    row_probs: [C, V] target distributions (row c governs the token at
+    absolute position pos0 + c + 1); proposals: the judged draft tokens
+    (proposal c by row c); draft_probs: None for point-mass proposers
+    (n-gram lookup, a greedy draft), else [len(proposals), V] draft
+    distributions q.  Returns (tokens, n_accepted): one token per judged
+    row up to and including the first rejection, the accepted proposals
+    verbatim, then one draw from the residual max(p - q, 0) / Z.  When
+    every proposal is accepted the caller appends the bonus token, which
+    the plain sampler draws from the last row."""
+    rp = np.asarray(torch.as_tensor(row_probs).double().cpu())
+    tokens, n_acc = [], 0
+    for c, d in enumerate(proposals):
+        d = int(d)
+        p = rp[c]
+        q_d = 1.0 if draft_probs is None else float(draft_probs[c][d])
+        position = int(pos0) + c + 1
+        u = float(torch.rand(1, generator=_spec_generator(seed, position, 1),
+                             dtype=torch.float64))
+        if u * q_d < p[d] or q_d <= 0.0:
+            tokens.append(d)
+            n_acc += 1
+            continue
+        # rejected: the correction comes from the residual distribution
+        if draft_probs is None:
+            r = p.copy()
+            r[d] = 0.0
+        else:
+            r = np.maximum(p - np.asarray(draft_probs[c], np.float64), 0.0)
+        z = r.sum()
+        if z <= 0.0:
+            # p == q numerically: any p-distributed draw is correct
+            r, z = p, p.sum()
+        u2 = torch.rand(r.shape[0],
+                        generator=_spec_generator(seed, position, 2),
+                        dtype=torch.float64).numpy()
+        g = -np.log(-np.log(np.maximum(u2, np.finfo(np.float64).tiny)))
+        with np.errstate(divide="ignore"):
+            logr = np.where(r > 0.0, np.log(np.maximum(r / z, 1e-300)),
+                            -np.inf)
+        tokens.append(int(np.argmax(logr + g)))
+        break
+    return tokens, n_acc
 
 
 def slot_arrays(params_list):

@@ -1,5 +1,5 @@
 """Continuous-batching scheduler: admission, slot assignment, preemption
-(port of ``repro.serve.scheduler``, without its prefix-cache admission).
+(port of ``repro.serve.scheduler``).
 
 Policy (vLLM-style):
 
@@ -17,6 +17,10 @@ Policy (vLLM-style):
   re-enters the FRONT of the waiting queue for a later re-prefill.  The
   sampler's position-keyed generator makes the replayed trajectory
   identical.
+- **Prefix cache** (when the engine attaches a ``RadixPrefixCache``):
+  admission shares a hit's full blocks (``pool.ref``), allocates only the
+  rest, and evicts cold cache leaves before it gives up on a candidate;
+  growth evicts a cold leaf before it preempts.
 """
 from __future__ import annotations
 
@@ -61,6 +65,19 @@ class Request:
         self.last_token = None       # next decode step's input token
         self.preemptions = 0
         self.admit_seq = -1          # admission order (preemption priority)
+        self.prefix_hit = None       # PrefixHit consumed by the engine
+        # speculative decoding: positions the DRAFT pool has materialized
+        # (disposable: reset on preemption, the draft re-prefills), and
+        # the positions the next decode round writes (1 = plain decode,
+        # 1 + k proposals when the engine speculates)
+        self.draft_cached = 0
+        self.spec_lookahead = 1
+        # prefill accounting: prompt positions already counted into the
+        # prefix-cache stats, and the highest position ever materialized
+        # (replayed chunks after a preemption are not new work); neither
+        # is reset by preempt()
+        self.prefill_counted = 0
+        self.prefill_high = 0
 
     @property
     def seq_tokens(self):
@@ -99,6 +116,9 @@ class Scheduler:
         # batch shrink) after repeated pool-OOM preemption storms and raises
         # it back once the pool calms down.  Only gates NEW admissions.
         self.max_active = n_slots
+        # Optional RadixPrefixCache (the engine attaches it): admission then
+        # shares cached prefix pages
+        self.prefix_cache = None
         # Requests FAILED at admission (prompt can never be resident); the
         # engine drains this list.
         self.admission_failures: list = []
@@ -137,6 +157,8 @@ class Scheduler:
                 f"blocks, pool capacity is {self.cache.pool.capacity(0)} "
                 f"blocks/group")
             self.admission_failures.append(req)
+        if self.prefix_cache is not None:
+            return self._admit_with_prefix_cache()
         admitted = []
         for slot in range(self.n_slots):
             if len(self.running) >= self.max_active:
@@ -167,6 +189,53 @@ class Scheduler:
             admitted.append(pick)
         return admitted
 
+    def _admit_with_prefix_cache(self):
+        """Admission consulting the radix cache: a hit's full blocks are
+        shared (pool.ref), only the remainder is freshly allocated, and a
+        dry freelist first evicts cold cache leaves before giving up on a
+        candidate.  The same FCFS-with-holes policy as ``admit``."""
+        pc = self.prefix_cache
+        admitted = []
+        for slot in range(self.n_slots):
+            if len(self.running) >= self.max_active:
+                break
+            if self.slots[slot] is not None:
+                continue
+            g = self.group_of_slot(slot)
+            pick = hit = None
+            for req in self.waiting:
+                seq = req.seq_tokens
+                h = pc.lookup(g, seq, len(seq) - 1)
+                need_new = (self.cache.blocks_for(len(seq) + 1)
+                            - len(h.full_blocks))
+                short = need_new - self.cache.pool.available(g)
+                if short > 0:
+                    # cold shareable leaves first; the hit path is pinned
+                    pc.evict(g, short,
+                             protect=set(h.full_blocks)
+                             | ({h.cow_src} if h.cow_src is not None
+                                else set()))
+                    short = need_new - self.cache.pool.available(g)
+                if short <= 0:
+                    pick, hit = req, h
+                    break
+            if pick is None:
+                continue
+            self.waiting.remove(pick)
+            need_new = (self.cache.blocks_for(len(pick.seq_tokens) + 1)
+                        - len(hit.full_blocks))
+            fresh = self.cache.pool.alloc(g, need_new)
+            self.cache.pool.ref(hit.full_blocks)   # the request's own hold
+            pick.block_ids = list(hit.full_blocks) + fresh
+            pick.prefix_hit = hit
+            pick.slot = slot
+            pick.state = RUNNING
+            pick.admit_seq = self._admit_clock
+            self._admit_clock += 1
+            self.slots[slot] = pick
+            admitted.append(pick)
+        return admitted
+
     def preempt(self, req: Request) -> None:
         """Evict: free pages, fold generated tokens into the prompt, requeue
         at the front for re-prefill."""
@@ -177,23 +246,33 @@ class Scheduler:
         req.slot = None
         req.num_cached = 0
         req.last_token = None
+        req.prefix_hit = None
+        req.draft_cached = 0         # draft pages may be reallocated
+        req.spec_lookahead = 1
         req.state = WAITING
         req.preemptions += 1
         self.waiting.appendleft(req)
 
     def ensure_decode_capacity(self):
-        """Give every running request room for its next position; preempt
-        youngest-first inside a group when its freelist runs dry.  Returns
-        the requests preempted this round."""
+        """Give every running request room for its next position(s):
+        ``spec_lookahead`` of them (1 for plain decode, 1 + k when the
+        engine speculates, whose proposals need resident pages before
+        verification).  A dry freelist first gives up a cold prefix-cache
+        leaf, then preempts youngest-first inside the group.  Returns the
+        requests preempted this round."""
         preempted = []
         for slot in range(self.n_slots):
             req = self.slots[slot]
             if req is None:
                 continue
-            need = self.cache.blocks_for(req.num_cached + 1)
+            need = self.cache.blocks_for(req.num_cached
+                                         + max(1, req.spec_lookahead))
             while need > len(req.block_ids):
                 g = self.group_of_slot(slot)
                 got = self.cache.pool.alloc(g, 1)
+                if got is None and self.prefix_cache is not None \
+                        and self.prefix_cache.evict(g, 1):
+                    got = self.cache.pool.alloc(g, 1)
                 if got is not None:
                     req.block_ids.extend(got)
                     continue
@@ -213,4 +292,5 @@ class Scheduler:
         req.block_ids = []
         self.slots[req.slot] = None
         req.slot = None
+        req.prefix_hit = None
         req.state = FINISHED

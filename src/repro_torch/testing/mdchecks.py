@@ -30,8 +30,15 @@ or on ``--layout data,1,1,cols``.  Checks:
   ``--cases FILE`` (JSON list; keys: name, schedule, arch, reduced, layers,
   kv_heads, params (an .npz of the reference's global tree, from
   ``convert.flatten_params``), n_slots, block_size, num_blocks, max_seq_len,
-  preempt) gives other cases, and ``--out FILE`` receives every case's ids
-  (rank 0 writes); the loss runs across ranks and equals one rank's;
+  preempt, workload, prompt_lens, new_tokens) gives other cases, and
+  ``--out FILE`` receives every case's ids (rank 0 writes); the loss runs
+  across ranks and equals one rank's.  A case may turn the engine's
+  features on (prefix_cache, prefill_chunk, spec_k, spec_mode, and draft:
+  an arch name built reduced or full as the target, with the target's
+  vocab; draft_params an .npz like params, draft_layers): its mesh ids
+  must then equal one rank's with the same features and one rank's plain
+  engine's, a cache case must hit and split copy-on-write in every KV
+  group, and it skips the loss and logit probes the plain cases make;
 - ``ssm_serve``: mamba2 on the mesh against the one-rank port on the
   same global weights, per case (by default fused and ring with a batch
   on the ``decode`` plan, and one on ``long_decode``, or ``decode_dp``
@@ -423,64 +430,147 @@ def _default_cases(device, ctx):
                       num_blocks=64, max_seq_len=64)
     # Megatron has no SUMMA grid to ring over
     scheds = ("fused",) if ctx.mode == "megatron1d" else ("fused", "ring")
-    return [dict(common, name=s, schedule=s) for s in scheds]
+    cases = [dict(common, name=s, schedule=s) for s in scheds]
+    if device.type != "cuda":
+        return cases
+    # the engine's features at full width: the prefix cache with chunked
+    # prefill on a shared system prompt (16 requests through 8 slots, so
+    # both KV groups re-admit onto a filled cache; 500 tokens end 4 into a
+    # 16-position page, so every hit splits it copy-on-write), and
+    # speculation with smollm-360m drafting (4 layers, the target's vocab)
+    shared = dict(common, name="shared", schedule=scheds[0],
+                  workload="shared", system_len=500,
+                  prompt_lens=[40, 200, 8, 120, 0, 64, 160, 24] * 2,
+                  new_tokens=8, prefix_cache=True, prefill_chunk=256)
+    spec = dict(common, name="spec", schedule=scheds[-1],
+                workload="repetitive", new_tokens=8, spec_k=4,
+                spec_mode="draft", draft="smollm-360m", draft_layers=4)
+    return cases + [shared, spec]
+
+
+FEATURES = ("prefix_cache", "prefill_chunk", "spec_k", "spec_mode")
+# shared-prompt workload of the CPU cases: the reference's (its
+# check_prefix_cache) twice over, so that both KV groups of [2, 2, 1] admit
+# requests after a first one has filled their cache
+SHARED_SUFFIXES = (5, 9, 2, 13, 5, 7, 0, 6, 11, 3, 8, 4)
+SHARED_NEW = (6, 4, 8, 5, 7, 3, 6, 5, 4, 6, 5, 7)
 
 
 def _prompts(case, vocab):
+    """The case's prompts: ``workload`` "mixed" (seeded lengths
+    ``prompt_lens``), "shared" (a system prompt of ``system_len`` tokens,
+    default 10, before seeded suffixes of ``prompt_lens`` tokens, default
+    ``SHARED_SUFFIXES``; a suffix of 0 is the first prompt's identical
+    twin) or "repetitive" (the reference's speculation prompts: short
+    random bases repeated)."""
+    hi = min(vocab, 250) if case.get("reduced") else vocab
+    kind = case.get("workload", "mixed")
+    if kind == "shared":
+        rng = np.random.RandomState(21)
+        system = rng.randint(0, hi, (case.get("system_len", 10),)).tolist()
+        out = []
+        for n in case.get("prompt_lens", SHARED_SUFFIXES):
+            out.append(list(out[0]) if n == 0 and out
+                       else system + rng.randint(0, hi, (n,)).tolist())
+        return out
+    if kind == "repetitive":
+        return _repetitive(hi, case.get("requests", 8))[0]
     lens = case.get("prompt_lens", PROMPT_LENS)
     rng = np.random.default_rng(4)
-    return [rng.integers(0, min(vocab, 250) if case.get("reduced")
-                         else vocab, (n,)).tolist() for n in lens]
+    return [rng.integers(0, hi, (n,)).tolist() for n in lens]
+
+
+def _repetitive(hi, n):
+    """(prompts, new tokens) of the reference's speculation workload (its
+    check_spec_decode), drawn in its order."""
+    rng = np.random.RandomState(9)
+    prompts, new = [], []
+    for _ in range(n):
+        base = rng.randint(0, hi, (rng.randint(3, 6),)).tolist()
+        prompts.append((base * 6)[:rng.randint(6, 18)])
+        new.append(int(rng.randint(4, 10)))
+    return prompts, new
 
 
 def _new_tokens(case, n):
     if "new_tokens" in case:
         return [case["new_tokens"]] * n
-    return [NEW_TOKENS[i % len(NEW_TOKENS)] for i in range(n)]
+    kind = case.get("workload", "mixed")
+    if kind == "repetitive":
+        return _repetitive(250, n)[1]
+    table = SHARED_NEW if kind == "shared" else NEW_TOKENS
+    return [table[i % len(table)] for i in range(n)]
 
 
-def _models(mesh, dev, case):
+def _models(mesh, dev, case, draft=False):
     """(the model on the mesh, the one-rank model) on the same global
     weights: the case's reference tree (``params``, an .npz of the
-    reference's global params) or the seed's."""
-    arch = (get_reduced(case["arch"]) if case.get("reduced")
-            else get_arch(case["arch"])).model
+    reference's global params) or the seed's.  ``draft``: the case's draft
+    model instead (``draft``, ``draft_layers``, ``draft_params``; seed 7),
+    with the target's vocab."""
+    get = get_reduced if case.get("reduced") else get_arch
+    arch = get(case["arch"]).model
     if "layers" in case:
         arch = dataclasses.replace(arch, num_layers=case["layers"])
     if "kv_heads" in case:
         arch = dataclasses.replace(arch, num_kv_heads=case["kv_heads"])
+    params, seed = case.get("params"), 0
+    if draft:
+        vocab = arch.vocab_size
+        arch = dataclasses.replace(get(case["draft"]).model,
+                                   vocab_size=vocab)
+        if "draft_layers" in case:
+            arch = dataclasses.replace(arch,
+                                       num_layers=case["draft_layers"])
+        params, seed = case.get("draft_params"), 7
     run = RunConfig(param_dtype="float32", compute_dtype="float32",
                     attn_impl="auto")
     ctx = mesh.ctx.replace(matmul_schedule=case["schedule"],
                            attn_impl="auto")
-    model = build_model(arch, ctx, run, device=dev, seed=0, mesh=mesh)
+    model = build_model(arch, ctx, run, device=dev, seed=seed, mesh=mesh)
     one = build_model(arch, ParallelContext(attn_impl="auto"), run,
-                      device=dev, seed=0)
-    if "params" in case:
-        tree = load_params(case["params"])
+                      device=dev, seed=seed)
+    if params:
+        tree = load_params(params)
         params_from_jax(tree, one)
         params_from_jax(shard_params(tree, arch, ctx, mesh.coords), model)
     return model, one
 
 
-def _run_engine(model, case, prompts, new, device):
+def _run_engine(model, case, prompts, new, device, draft=None,
+                features=True):
+    """Greedy ids of the prompts through an engine of the case's config
+    (its features too, unless ``features`` is False), its stats, and per
+    KV group the preemptions, prefix-cache hits and copy-on-write
+    splits."""
     from ..serve import EngineConfig, InferenceEngine, SamplingParams
+    kw = {k: case[k] for k in FEATURES if features and k in case}
     eng = InferenceEngine(model, EngineConfig(
         n_slots=case["n_slots"], block_size=case["block_size"],
-        num_blocks=case["num_blocks"], max_seq_len=case["max_seq_len"]),
-        device=device)
-    per_group = [0] * eng.cache.n_groups
-    preempt = eng.sched.preempt
+        num_blocks=case["num_blocks"], max_seq_len=case["max_seq_len"],
+        **kw), device=device, draft_model=draft if features else None)
+    groups = {k: [0] * eng.cache.n_groups
+              for k in ("preemptions", "hits", "cow")}
+    preempt, apply_hits = eng.sched.preempt, eng._apply_prefix_hits
 
     def counted(req):
-        per_group[eng.sched.group_of_slot(req.slot)] += 1
+        groups["preemptions"][eng.sched.group_of_slot(req.slot)] += 1
         preempt(req)
 
+    def hits(admitted):
+        for req in admitted:
+            g = eng.sched.group_of_slot(req.slot)
+            if req.prefix_hit is not None and req.prefix_hit.tokens:
+                groups["hits"][g] += 1
+                groups["cow"][g] += bool(req.prefix_hit.cow_len)
+        apply_hits(admitted)
+
     eng.sched.preempt = counted
+    eng._apply_prefix_hits = hits
     reqs = [eng.add_request(p, SamplingParams(max_new_tokens=n))
             for p, n in zip(prompts, new)]
     res = eng.run()
-    return [res[r.rid] for r in reqs], eng.stats, per_group
+    return [res[r.rid] for r in reqs], eng, groups
 
 
 def _logit_error(model, one, prompt, steps, bs, device):
@@ -538,25 +628,52 @@ def check_serve_engine(mesh: Mesh, dev, args):
     out = {}
     for case in cases:
         t0 = time.perf_counter()
+        name = case["name"]
         model, one = _models(mesh, dev, case)
+        drafts = (_models(mesh, dev, case, draft=True) if case.get("draft")
+                  else (None, None))
         prompts = _prompts(case, model.cfg.vocab_size)
         new = _new_tokens(case, len(prompts))
         kops.reset_launches()
-        got, stats, per_group = _run_engine(model, case, prompts, new, dev)
+        got, eng, groups = _run_engine(model, case, prompts, new, dev,
+                                       drafts[0])
         launches = dict(kops.LAUNCHES)
-        want, _, _ = _run_engine(one, case, prompts, new, dev)
-        _agree(mesh, dev, got == want, f"{case['name']}: mesh ids differ from "
-                                  f"one rank\n{got}\n{want}")
+        stats, per_group = eng.stats, groups["preemptions"]
+        want, one_eng, _ = _run_engine(one, case, prompts, new, dev,
+                                       drafts[1])
+        _agree(mesh, dev, got == want, f"{name}: mesh ids differ from "
+                                       f"one rank\n{got}\n{want}")
         if case.get("preempt"):
             _agree(mesh, dev, min(per_group) > 0,
-                   f"{case['name']}: preemptions per KV group {per_group}")
-        rel, same = _logit_error(model, one, prompts[0],
-                                 case.get("logit_steps", 4),
-                                 case["block_size"], dev)
-        _agree(mesh, dev, same and rel <= 1e-4,
-               f"{case['name']}: logits differ by {rel:.3g} of max (ids "
-               f"same: {same})")
-        if mesh.size > 1:
+                   f"{name}: preemptions per KV group {per_group}")
+        featured = any(case.get(k) for k in FEATURES[:3])
+        rel = None
+        if featured:
+            plain, _, _ = _run_engine(one, case, prompts, new, dev,
+                                      features=False)
+            _agree(mesh, dev, got == plain,
+                   f"{name}: ids differ from one rank's plain engine\n"
+                   f"{got}\n{plain}")
+            if case.get("prefix_cache"):
+                _agree(mesh, dev, min(groups["hits"]) > 0
+                       and min(groups["cow"]) > 0,
+                       f"{name}: prefix hits per KV group {groups['hits']}, "
+                       f"copy-on-write splits {groups['cow']}")
+            if case.get("spec_k"):
+                _agree(mesh, dev, stats.spec_rounds > 0
+                       and stats.spec_committed
+                       == one_eng.stats.spec_committed,
+                       f"{name}: {stats.spec_rounds} verify rounds, "
+                       f"{stats.spec_committed} committed (one rank "
+                       f"{one_eng.stats.spec_committed})")
+        else:
+            rel, same = _logit_error(model, one, prompts[0],
+                                     case.get("logit_steps", 4),
+                                     case["block_size"], dev)
+            _agree(mesh, dev, same and rel <= 1e-4,
+                   f"{name}: logits differ by {rel:.3g} of max (ids "
+                   f"same: {same})")
+        if mesh.size > 1 and not featured:
             # the loss runs across ranks and equals one rank's
             gen = torch.Generator(device="cpu").manual_seed(3)
             tokens = torch.randint(0, model.cfg.vocab_size,
@@ -568,15 +685,31 @@ def check_serve_engine(mesh: Mesh, dev, args):
             _agree(mesh, dev, d <= TRAIN_TOL[dev.type]["loss"],
                    f"{case['name']}: loss across ranks off one rank's by "
                    f"{d:.3g}")
-        out[case["name"]] = dict(ids=got, preemptions=per_group,
-                                 logit_rel_err=rel, launches=launches,
-                                 steps=stats.steps, tokens=stats.tokens)
-        log(mesh, f"  serve_engine {case['name']}: ids identical to one rank "
-                  f"({stats.tokens} tokens, {stats.steps} steps, "
-                  f"preemptions per group {per_group}); logits within "
-                  f"{rel:.2e} of max; launches {launches}; "
+        out[name] = dict(
+            ids=got, preemptions=per_group, hits=groups["hits"],
+            cow=groups["cow"], logit_rel_err=rel, launches=launches,
+            steps=stats.steps, tokens=stats.tokens,
+            spec_rounds=stats.spec_rounds,
+            acceptance=stats.acceptance_rate(),
+            hit_rate=stats.cache_hit_rate(),
+            draft_steps=(None if eng._draft is None else
+                         [eng._draft.chunk_steps, eng._draft.decode_steps]))
+        log(mesh, f"  serve_engine {name}: ids identical to one rank"
+                  + (" and its plain engine" if featured else "")
+                  + f" ({stats.tokens} tokens, {stats.steps} steps, "
+                  f"preemptions per group {per_group}"
+                  + (f", hits {groups['hits']} cow {groups['cow']} per "
+                     f"group, hit rate {stats.cache_hit_rate():.3f}"
+                     if case.get("prefix_cache") else "")
+                  + (f", {stats.spec_rounds} verify rounds, acceptance "
+                     f"{stats.acceptance_rate():.3f}"
+                     if case.get("spec_k") else "")
+                  + ")"
+                  + (f"; logits within {rel:.2e} of max" if rel is not None
+                     else "")
+                  + f"; launches {launches}; "
                   f"{time.perf_counter() - t0:.1f} s")
-        del model, one
+        del model, one, drafts, eng, one_eng
     if args.out and mesh.rank == 0:
         with open(args.out, "w") as f:
             json.dump(out, f)

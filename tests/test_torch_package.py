@@ -186,14 +186,18 @@ def test_unported_features_raise():
     model = build_model(cfg, ParallelContext(),
                         RunConfig(param_dtype="float32",
                                   compute_dtype="float32"), device="cpu")
+    # the prefix cache, chunked prefill and speculation are ported
     for knob in ({"prefix_cache": True}, {"prefill_chunk": 8},
                  {"spec_k": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            InferenceEngine(model, EngineConfig(**knob), device="cpu")
-    # the engine's fault sites stay unported: a plan naming one is refused
-    # (a train-only plan is not the engine's business)
+        InferenceEngine(model, EngineConfig(**knob), device="cpu")
+    # of the engine's fault sites only serve.prefix is ported: a plan
+    # naming serve.step or serve.logits is refused (a train-only plan is
+    # not the engine's business)
     for plan, refused in (("serve.step@1:drop_step", True),
                           ("train.grads@1:nan;serve.logits@2:nan(1)", True),
+                          ("serve.prefix@1:flush;serve.step@2:drop_step",
+                           True),
+                          ("serve.prefix@3:evict(2)", False),
                           ("train.grads@1:nan", False)):
         faulty = build_model(cfg, ParallelContext(),
                              RunConfig(param_dtype="float32",

@@ -1,17 +1,24 @@
 """The port's engine on a [2, 2, 1] mesh of four CPU ranks (torchrun, gloo)
 against the JAX package's one-device engine.
 
-One spawn of ``repro_torch.testing.mdchecks serve_engine`` runs five cases
-of reduced yi-6b in fp32 on the same 8 mixed-length requests (4 slots, so
-2 per KV group): the fused and the ring SUMMA schedules; one KV head, which
-q = 2 cannot shard (the replicated-KV ``linear_to_replicated`` path); a
-pool of 16 blocks that preempts in both KV groups; and weights drawn from
-the port's seed instead of the reference's.  In the spawn each case's
-greedy ids must equal the port's one-rank engine on the same weights, and
-one request's prefill and decode logits must agree within 1e-4 of their
-max.  Here the ids of the cases on the reference's ``model.init`` params
-must equal the reference's one-device ``InferenceEngine`` (jnp attention),
-computed while the spawn runs.
+One spawn of ``repro_torch.testing.mdchecks serve_engine`` runs seven
+cases of reduced yi-6b in fp32 (4 slots, so 2 per KV group).  On the same
+8 mixed-length requests: the fused and the ring SUMMA schedules; one KV
+head, which q = 2 cannot shard (the replicated-KV ``linear_to_replicated``
+path); a pool of 16 blocks that preempts in both KV groups; and weights
+drawn from the port's seed instead of the reference's.  With the engine's
+features: ``shared`` (fused, the prefix cache with chunked prefill of 4 on
+12 requests behind one system prompt, so that both KV groups hit the
+cache and split a page copy-on-write) and ``spec`` (ring, spec_k 3 with
+reduced smollm-360m drafting, whose 3 q heads pad to 4 over col and whose
+one KV head takes the replicated-KV path, on the reference's repetitive
+prompts).  In the spawn each case's greedy ids must equal the port's
+one-rank engine on the same weights (and the feature cases' the one-rank
+plain engine's); the plain cases' prefill and decode logits of one request
+must agree within 1e-4 of their max.  Here the ids of the cases on the
+reference's ``model.init`` params must equal the reference's one-device
+``InferenceEngine`` (jnp attention) with the same features, computed while
+the spawn runs.
 """
 import dataclasses
 import json
@@ -48,25 +55,38 @@ CASES = [
     dict(name="preempt", schedule="fused", params="yi", num_blocks=16,
          preempt=True),
     dict(name="seeded", schedule="ring", num_blocks=64),
+    dict(name="shared", schedule="fused", params="yi", num_blocks=64,
+         workload="shared", prefix_cache=True, prefill_chunk=4),
+    dict(name="spec", schedule="ring", params="yi", num_blocks=64,
+         workload="repetitive", spec_k=3, spec_mode="draft",
+         draft="smollm-360m", draft_params="smollm"),
 ]
+FEATURES = ("prefix_cache", "prefill_chunk", "spec_k", "spec_mode")
 
 
-def _ref_params(kv_heads=None):
-    cfg = get_reduced("yi-6b").model
+def _ref_params(kv_heads=None, arch="yi-6b", vocab=None, key=0):
+    cfg = get_reduced(arch).model
     if kv_heads:
         cfg = dataclasses.replace(cfg, num_kv_heads=kv_heads)
+    if vocab:
+        cfg = dataclasses.replace(cfg, vocab_size=vocab)
     ctx = RefCtx(mode="tesseract", attn_impl="jnp")
     run = RefRun(param_dtype="float32", compute_dtype="float32",
                  attn_impl="jnp", q_chunk=8, kv_chunk=8)
     model = ref_build(cfg, ctx, run)
-    return model, logical_mesh(ctx), model.init(jax.random.PRNGKey(0))
+    return model, logical_mesh(ctx), model.init(jax.random.PRNGKey(key))
 
 
-def _ref_ids(model, mesh, params):
-    case = dict(reduced=True)
+def _ref_ids(model, mesh, params, spec=None, draft=None):
+    """The reference's one-device engine on a case's prompts, with its
+    features (``draft``: the reference's draft model and params)."""
+    case = dict(spec or {}, reduced=True)
     prompts = _prompts(case, model.cfg.vocab_size)
+    kw = {k: case[k] for k in FEATURES if k in case}
     eng = RefEngine(model, mesh, params,
-                    RefEngineConfig(num_blocks=64, **ENGINE))
+                    RefEngineConfig(num_blocks=64, **ENGINE, **kw),
+                    draft_model=draft[0] if draft else None,
+                    draft_params=draft[2] if draft else None)
     reqs = [eng.add_request(p, RefSampling(max_new_tokens=n))
             for p, n in zip(prompts, _new_tokens(case, len(prompts)))]
     res = eng.run()
@@ -78,13 +98,16 @@ def runs(tmp_path_factory):
     """(the spawn's ids per case, the reference's ids per params set)."""
     tmp = tmp_path_factory.mktemp("serve_mesh")
     refs = {"yi": _ref_params(), "yi_kv1": _ref_params(kv_heads=1)}
-    for name, (_, _, params) in refs.items():
+    vocab = refs["yi"][0].cfg.vocab_size
+    draft = _ref_params(arch="smollm-360m", vocab=vocab, key=7)
+    for name, (_, _, params) in [*refs.items(), ("smollm", draft)]:
         np.savez(tmp / f"{name}.npz",
                  **flatten_params(jax.tree.map(np.asarray, params)))
     cases = [dict(c, arch="yi-6b", reduced=True, **ENGINE) for c in CASES]
     for c in cases:
-        if "params" in c:
-            c["params"] = str(tmp / f"{c['params']}.npz")
+        for key in ("params", "draft_params"):
+            if key in c:
+                c[key] = str(tmp / f"{c[key]}.npz")
     (tmp / "cases.json").write_text(json.dumps(cases))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     proc = subprocess.Popen(
@@ -96,6 +119,11 @@ def runs(tmp_path_factory):
         text=True)
     try:
         want = {name: _ref_ids(*ref) for name, ref in refs.items()}
+        for c in CASES:
+            if any(k in c for k in FEATURES):
+                want[c["name"]] = _ref_ids(
+                    *refs[c["params"]], spec=c,
+                    draft=draft if c.get("draft") else None)
         out, _ = proc.communicate(timeout=180)
     finally:
         if proc.poll() is None:
@@ -108,8 +136,16 @@ def runs(tmp_path_factory):
 def test_mesh_engine_matches_reference(runs, case):
     got, want = runs
     spec = {c["name"]: c for c in CASES}[case]
-    if "params" in spec:
+    if case in want:
+        assert got[case]["ids"] == want[case]
+    elif "params" in spec:
         assert got[case]["ids"] == want[spec["params"]]
     if spec.get("preempt"):
         assert min(got[case]["preemptions"]) > 0, got[case]["preemptions"]
-    assert got[case]["logit_rel_err"] <= 1e-4
+    if spec.get("prefix_cache"):
+        assert min(got[case]["hits"]) > 0 and min(got[case]["cow"]) > 0
+    if spec.get("spec_k"):
+        assert got[case]["spec_rounds"] > 0
+        assert min(got[case]["draft_steps"]) > 0
+    if not any(k in spec for k in FEATURES):
+        assert got[case]["logit_rel_err"] <= 1e-4
