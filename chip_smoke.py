@@ -24,7 +24,9 @@ non-zero and prints no result:
    edges (a 256-page table with short positions, a window crossing a split
    boundary, every q head on one kv head) and the models' contiguous GQA
    map (yi-6b's group of 8 at D 128, smollm-360m's group of 3 at D 64, the
-   draft's decode), launched twice giving the same bits; the SSD
+   draft's decode), the static decode loop's dense caches viewed as a
+   page pool (pages of 125 and 128, and one page a sequence), launched
+   twice giving the same bits; the SSD
    intra-chunk pass
    at (H, P, N) = (64, 64, 128) and (4, 16, 16), Q in {256, 250, 143, 16,
    1}, B in {1, 2}, nc in {1, 8}, mild and steep decay, and launched twice
@@ -94,6 +96,17 @@ non-zero and prints no result:
    step, each worth up to 5e-2; the decode step's #6 against its plain
    version logged beside it) and argmax equal wherever the decode's top-2
    margin exceeds that;
+   serve faults: the one-device chaos plan (mdchecks.ONE_DEVICE_CHAOS: a
+   NaN row, a 0.05 s straggler, a dropped step, KV-pool exhaustion, a
+   device loss that rebuilds the engine on the card) at full width in
+   fp32, 4 layers, plain, with the prefix cache and with n-gram
+   speculation: ids identical to the fault-free run, the counts the
+   reference engine gives on the CPU (mdchecks.ONE_DEVICE_RUNS), launches
+   exact; then bf16 at full depth on the serve traffic: every request
+   finished, tokens/s, TTFT, ITL and peak memory logged;
+   static decode: yi-6b fp32, 4 layers, a prefill of 8 x 1000 tokens and
+   8 greedy steps through runtime/serve_steps against 1125-position
+   caches (#6 on pages of 125): launches exact, ids equal the engine's;
 11. train: smollm-360m at full width and depth, fp32 params, bf16 compute,
    seq 2048 x batch 8, 10 steps through runtime/train_loop.train with the
    launch counters zeroed just before: finite losses starting near
@@ -146,7 +159,10 @@ non-zero and prints no result:
    2048 bucket and at the train shape, paged with a 256-entry table over
    the 2048-block pool, the backward passes and the forward at the train
    shape and at yi-6b's, the SSD pass at the ssm serve shape, the SUMMA
-   kernels at yi-6b's q = 2 per-rank and one-rank gate/up shapes), then
+   kernels at yi-6b's q = 2 per-rank and one-rank gate/up shapes, at the
+   verify rows and the smollm-360m draft's rows; paged decode also at the
+   draft's head shape, D 64 group 3, and on the static loop's dense view,
+   there beside SDPA with the positions' mask), then
    kernel, plain version and library call timed (CUDA events, median of
    20 launches with a cold L2), each beside the least time the card could
    take (bound) and, for the kernels redesigned last, the time recorded
@@ -523,6 +539,15 @@ def phase_kernels():
                 check(e <= tol_out, f"paged {label} Hq={Hq} D={D} {dtype}: "
                                     f"err {e:.3g}")
                 n += 1
+            for S, bs in DENSE_VIEW_CASES:
+                for pos in (0, S // 2 + 1, S - 1):
+                    e = _dense_view_case(gen, Hq, Hkv, D, S, pos, dtype)
+                    worst["paged_attention"] = max(worst["paged_attention"],
+                                                   e)
+                    check(e <= tol_out,
+                          f"paged on the dense view S={S} (pages of {bs}) "
+                          f"pos={pos} Hq={Hq} D={D} {dtype}: err {e:.3g}")
+                    n += 1
     # the splits merge in a fixed order with no atomics: two launches give
     # the same bits
     from repro_torch.kernels.paged_attention import paged_attention
@@ -595,6 +620,33 @@ def _paged_inputs(gen, Hq, Hkv, D, bs, dtype, max_len=2048, pos=None,
     pk = randn(gen, P, bs, Hkv, D, dtype=dtype)
     pv = randn(gen, P, bs, Hkv, D, dtype=dtype)
     return q, pk, pv, table, pos, kv_map
+
+
+# the static decode loop's dense caches viewed as a page pool
+# (models/common.py dense_view): S -> pages of decode_bs(S): 125 (S 1125,
+# phase_static_decode's cache), 128, and one page per sequence (S 100)
+DENSE_VIEW_CASES = ((1125, 125), (1024, 128), (100, 100))
+
+
+def _dense_view_case(gen, Hq, Hkv, D, S, pos, dtype):
+    """#6 on 8 dense caches of S positions viewed as a contiguous page
+    pool, every sequence at ``pos``, against its plain version on the same
+    view.  Returns the largest error."""
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_plain)
+    from repro_torch.models.common import contiguous_kv_map, dense_view
+    B = 8
+    bs, table, pos_t = dense_view(B, S, pos, "cuda")
+    check(S % bs == 0 and bs == dict(DENSE_VIEW_CASES)[S],
+          f"dense view of {S} positions: pages of {bs}")
+    q = randn(gen, B, Hq, D, dtype=dtype)
+    pk = randn(gen, B, S, Hkv, D, dtype=dtype).reshape(-1, bs, Hkv, D)
+    pv = randn(gen, B, S, Hkv, D, dtype=dtype).reshape(-1, bs, Hkv, D)
+    kv_map = contiguous_kv_map(Hq, Hkv, "cuda")
+    out = paged_attention(q, pk, pv, table, pos_t, kv_map)
+    torch.cuda.synchronize()
+    return max_err(out, paged_attention_plain(q, pk, pv, table, pos_t,
+                                              kv_map))
 
 
 def _paged_case(gen, Hq, Hkv, D, bs, window, dtype, **kw):
@@ -1561,6 +1613,206 @@ def phase_serve_features():
     return out
 
 
+def _fault_engine_run(model, prompts, new, cfg, plan=None, **features):
+    """The prompts through an InferenceEngine (greedy, ``new`` tokens
+    each) under the fault ``plan`` (seed 17), the launch counters zeroed
+    just before and read just after.  Returns (engine, ids per request,
+    requests, launches, wall s, peak device memory GiB)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.runtime.faults import FaultInjector, FaultPlan
+    from repro_torch.serve import EngineConfig, InferenceEngine, SamplingParams
+    from repro_torch.testing.mdchecks import CHAOS_SEED
+    engine = InferenceEngine(model, EngineConfig(**cfg, **features),
+                             device=model.device, injector=(
+                                 FaultInjector(FaultPlan.parse(
+                                     plan, seed=CHAOS_SEED))
+                                 if plan else None))
+    reqs = [engine.add_request(p, SamplingParams(max_new_tokens=n))
+            for p, n in zip(prompts, new)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    res = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (engine, [res[r.rid] for r in reqs], reqs, dict(kops.LAUNCHES),
+            wall, torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _check_fault_launches(what, engine, launches):
+    """Exact launches of a faulted run (replays, the dropped step and the
+    re-plan included): #3 = L x monolithic prefills, #6 = L x decode steps,
+    #1 = 7 x L x (prefills + chunk steps + decode steps + verify rounds),
+    #2 none; and #1 launched at all."""
+    s, L = engine.stats, engine.model.cfg.num_layers
+    want = {"flash_fwd": L * s.prefills,
+            "paged_attention": L * s.decode_steps,
+            "tesseract_mm": DENSE_MM * L * (s.prefills + s.chunk_steps
+                                            + s.decode_steps + s.spec_rounds),
+            "tesseract_mm_stream": 0}
+    got = {k: launches[k] for k in want}
+    check(got == want and got["tesseract_mm"] > 0,
+          f"{what}: launches {got} != {want} (prefills {s.prefills}, chunk "
+          f"steps {s.chunk_steps}, decode steps {s.decode_steps}, verify "
+          f"rounds {s.spec_rounds})")
+    return got
+
+
+def phase_serve_faults():
+    """The engine's fault sites and its re-plan on the card: the one-device
+    chaos plan (a NaN row, a 0.05 s straggler, a dropped step, KV-pool
+    exhaustion and a device loss that rebuilds the engine on the one card)
+    at full width in fp32, 4 layers, plain, with the prefix cache and with
+    n-gram speculation: ids equal to the fault-free run's, the counts the
+    reference engine gives on the CPU (``mdchecks.ONE_DEVICE_RUNS``), the
+    launches exact; then bf16 at full depth under the same plan on the
+    serve phase's traffic: every request finishes."""
+    from repro_torch.serve.scheduler import FINISHED
+    from repro_torch.testing.mdchecks import (ONE_DEVICE_CHAOS,
+                                              ONE_DEVICE_ENGINE,
+                                              ONE_DEVICE_RUNS, fault_workload)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _model(ARCH, "float32", "float32", "auto",
+                   layers=FEATURE_FP32_LAYERS)
+    out = {}
+    for name, run in ONE_DEVICE_RUNS.items():
+        prompts, new = fault_workload(run["workload"])
+        _, clean, _, _, _, _ = _fault_engine_run(
+            model, prompts, new, ONE_DEVICE_ENGINE, **run["features"])
+        eng, ids, _, launches, wall, _ = _fault_engine_run(
+            model, prompts, new, ONE_DEVICE_ENGINE, plan=run["plan"],
+            **run["features"])
+        s = eng.stats
+        counts = {k: getattr(s, k) for k in run["counts"]}
+        check(ids == clean, f"fp32 {name} chaos run: ids differ from the "
+                            f"fault-free run\n{ids}\n{clean}")
+        check(counts == run["counts"],
+              f"fp32 {name} chaos run: counts {counts} != the reference "
+              f"engine's {run['counts']}")
+        check([f[:3] for f in eng.injector.fired][-1]
+              == ("serve.step", 8, "device_loss") and eng.model is not model,
+              f"fp32 {name}: the device loss did not rebuild the engine")
+        got = _check_fault_launches(f"fp32 {name}", eng, launches)
+        out[name] = dict(counts=counts, launches=got, steps=s.steps,
+                         preemptions=s.preemptions, wall_s=wall)
+        log(f"serve faults fp32 {name} ({ARCH}, full width, "
+            f"{FEATURE_FP32_LAYERS} layers, plan {run['plan']}): ids "
+            f"identical to the fault-free run; counts {counts} equal the "
+            f"reference engine's; launches {got}; {s.steps} steps, "
+            f"{s.preemptions} preemptions, {wall:.2f} s")
+        del eng
+    del model
+    torch.cuda.empty_cache()
+
+    # bf16 at full depth: the serve phase's traffic under the same plan
+    model = _model(ARCH, "bfloat16", "bfloat16", "auto")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, model.cfg.vocab_size,
+                           SERVE_PROMPTS[i % len(SERVE_PROMPTS)]).tolist()
+               for i in range(SERVE_REQUESTS)]
+    eng, ids, reqs, launches, wall, peak = _fault_engine_run(
+        model, prompts, [SERVE_NEW] * SERVE_REQUESTS,
+        dict(n_slots=8, block_size=16, num_blocks=2048, max_seq_len=4096),
+        plan=ONE_DEVICE_CHAOS)
+    s = eng.stats
+    for r, toks in zip(reqs, ids):
+        check(r.state == FINISHED and len(toks) == SERVE_NEW
+              and all(0 <= t < model.cfg.vocab_size for t in toks),
+              f"bf16 chaos: request {r.rid} ended {r.state} with "
+              f"{len(toks)} tokens")
+    check(s.failed == 0 and s.nan_quarantines >= 1 and s.dropped_steps == 1
+          and s.pool_exhaust_events == 1 and eng.model is not model,
+          f"bf16 chaos: failed {s.failed}, quarantines {s.nan_quarantines}, "
+          f"dropped {s.dropped_steps}, exhausts {s.pool_exhaust_events}")
+    got = _check_fault_launches("bf16 chaos", eng, launches)
+    ttft, itl = s.ttft_percentiles(), s.itl_percentiles()
+    out["bf16"] = dict(
+        wall_s=wall, tokens_per_s=s.tokens / wall,
+        ttft_p50_ms=ttft["p50_ms"], ttft_p99_ms=ttft["p99_ms"],
+        itl_p50_ms=itl["p50_ms"], itl_p99_ms=itl["p99_ms"], peak_gib=peak,
+        steps=s.steps, prefills=s.prefills, decode_steps=s.decode_steps,
+        preemptions=s.preemptions, nan_quarantines=s.nan_quarantines,
+        batch_shrinks=s.batch_shrinks, health=s.health, launches=got)
+    log(f"serve faults bf16 ({ARCH} L={model.cfg.num_layers}, "
+        f"{SERVE_REQUESTS} requests x {SERVE_NEW} new, prompts "
+        f"{SERVE_PROMPTS}, plan {ONE_DEVICE_CHAOS}): every request "
+        f"finished; {json.dumps(out['bf16'])}")
+    del eng, model
+    torch.cuda.empty_cache()
+    return out
+
+
+# the static decode loop on the card: a prefill of STATIC_BATCH x
+# STATIC_PROMPT tokens, then STATIC_STEPS greedy steps against dense caches
+# of STATIC_CACHE positions, which the paged kernel reads as pages of 125
+STATIC_PROMPT, STATIC_BATCH, STATIC_STEPS, STATIC_CACHE = 1000, 8, 8, 1125
+
+
+def phase_static_decode():
+    """yi-6b at full width in fp32, 4 layers, through the static serve
+    steps (``runtime/serve_steps.py`` on DenseLM): the launches exact (#3
+    once per layer, #6 layers x steps on the dense view, #1 7 x layers x
+    (1 + steps)), and the ids equal the engine's for the same prompts."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.common import decode_bs
+    from repro_torch.runtime.serve_steps import (build_decode_step,
+                                                 build_prefill_step)
+    from repro_torch.serve import EngineConfig, InferenceEngine, SamplingParams
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _model(ARCH, "float32", "float32", "auto",
+                   layers=FEATURE_FP32_LAYERS)
+    L, B, T, n = (model.cfg.num_layers, STATIC_BATCH, STATIC_PROMPT,
+                  STATIC_STEPS)
+    bs = decode_bs(STATIC_CACHE)
+    check(bs == 125, f"the dense view of {STATIC_CACHE} positions has pages "
+                     f"of {bs}")
+    tokens = np.random.RandomState(11).randint(0, model.cfg.vocab_size,
+                                               (B, T)).astype(np.int32)
+    pre = build_prefill_step(model, ShapeSpec("p", T, B, "prefill"))
+    dec = build_decode_step(model, ShapeSpec("d", STATIC_CACHE, B, "decode"))
+    torch.cuda.synchronize()
+    kops.reset_launches()
+    t0 = time.perf_counter()
+    ids, cache = pre.fn(torch.from_numpy(tokens).to(model.device))
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    cache = dec.from_prefill(cache)
+    seq, t_dec = [ids], []
+    for t in range(n):
+        t1 = time.perf_counter()
+        ids, cache = dec.fn(cache, ids, T + t)
+        torch.cuda.synchronize()
+        t_dec.append(time.perf_counter() - t1)
+        seq.append(ids)
+    launches = dict(kops.LAUNCHES)
+    want = {"flash_fwd": L, "paged_attention": L * n,
+            "tesseract_mm": DENSE_MM * L * (1 + n), "tesseract_mm_stream": 0}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"static decode launches {got} != {want}")
+    static = torch.cat(seq, 1).tolist()
+    engine = InferenceEngine(model, EngineConfig(
+        n_slots=B, block_size=16, num_blocks=1024, max_seq_len=1040),
+        device=model.device)
+    reqs = [engine.add_request(p.tolist(), SamplingParams(
+        max_new_tokens=n + 1)) for p in tokens]
+    res = engine.run()
+    check([res[r.rid] for r in reqs] == static,
+          f"static decode ids differ from the engine's\n{static}\n"
+          f"{[res[r.rid] for r in reqs]}")
+    log(f"static decode: {ARCH} fp32 L={L}, {B} x {T} prefill "
+        f"{t_pre * 1e3:.1f} ms, {n} decode steps against {STATIC_CACHE}-"
+        f"position caches (pages of {bs}, plan {dec.plan.kind}) p50 "
+        f"{float(np.median(t_dec)) * 1e3:.2f} ms; ids identical to the "
+        f"engine's; launches {got}")
+    del engine, model, cache
+    torch.cuda.empty_cache()
+    return got
+
+
 def profile_decode(engine, rng, steps=8):
     """Where a decode step's time goes, after the counted run: 8 resident
     1000-token requests, ``steps`` engine steps under torch.profiler; device
@@ -1862,9 +2114,12 @@ def phase_summa_timings(launches, ring_launches, worst):
     """Kernel / plain / library times of #1 and #2 in bf16 at the q = 2
     per-rank gate/up shape (T 2, E 1024, F 2048, G 5504), smollm-360m's
     train gate/up (E 16384, F 960, G 2560), mamba2-1.3b's prefill w_z/w_x
-    (E 16384, F 2048, G 4096) and the one-rank gate/up (T 1, E 2048, F
-    4096, G 11008), each checked once more on the timed inputs, and at
-    the decode rows of the yi-6b projections (E 4 and 8);
+    (E 16384, F 2048, G 4096), the speculative verify rows of yi-6b (E 8 x
+    5 = 40), smollm-360m drafting (its decode rows E 8 and catch-up rows
+    E 8 x 16) and the one-rank gate/up (T 1, E 2048, F 4096, G 11008: also
+    the chunked prefill's 8 x 256 rows), each checked once more on the
+    timed inputs, and at the decode rows of the yi-6b projections (E 4 and
+    8);
     the kernels line carries the one-rank prefill shape (the last), the
     serve phase's launches for #1 and the ring phase's for #2.  #1 is timed
     as the fused schedule launches it, its C rounded to bf16 in the
@@ -1888,6 +2143,12 @@ def phase_summa_timings(launches, ring_launches, worst):
                                TRAIN_SEQ * TRAIN_BATCH, 960, 2560),
                               ("mamba2-1.3b prefill w_z/w_x", 1,
                                SSM_BATCH * SSM_PROMPT, 2048, 4096),
+                              ("verify rows gate/up", 1,
+                               8 * (FEATURE_SPEC_K + 1), 4096, 11008),
+                              ("smollm-360m draft decode gate/up", 1, 8,
+                               960, 2560),
+                              ("smollm-360m draft catch-up gate/up", 1,
+                               8 * 16, 960, 2560),
                               ("one-rank gate/up", 1, 2048, 4096, 11008)):
         a, b = _mm_inputs(gen, T, E, F, G, bf16)
         e1, e2, _ = _mm_check(a, b, f"timed {label}")
@@ -2491,6 +2752,9 @@ def phase_timings(launches, counts, worst):
     B, bs, max_len = 8, 16, 4096
     nb, P = max_len // bs, 2048
     lens = [p + SERVE_NEW // 2 for p in SERVE_PROMPTS] * 2
+    # first, so the row's max_abs_err counts them
+    _time_paged_draft(gen, worst, lens)
+    _time_dense_view(gen, worst)
     pos_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
     perm = (torch.randperm(P - 1, generator=gen, device="cuda") + 1)
     table = torch.zeros(B, nb, dtype=torch.int32, device="cuda")
@@ -2514,11 +2778,8 @@ def phase_timings(launches, counts, worst):
                                                kv_map), "paged_attention")
     plain_ms = time_ms(lambda: paged_attention_plain(qd, pk, pv, table,
                                                      pos_t, kv_map))
-    live = sum(n + 1 for n in lens)              # attended positions
-    flops = 4 * D * live * Hq
-    nbytes = live * Hkv * D * 2 * 2 + 2 * 2 * qd.numel() \
-        + 4 * (B + B * nb + Hq)
-    bound_ms, bound_by = _bound(flops, nbytes)
+    (bound_ms, bound_by), nbytes = _paged_bound(
+        sum(n + 1 for n in lens), Hq, Hkv, D, 2, qd.numel(), B, nb)
     rows.append(dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/csrc/paged_attention.cu",
@@ -2539,6 +2800,106 @@ def phase_timings(launches, counts, worst):
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "gb_per_s": nbytes / ms / 1e6}))
     return rows
+
+
+def _paged_bound(live, Hq, Hkv, D, elt, q_numel, B, nb):
+    """#6's least time: each live position's K and V read once, q read and
+    the output written once, the table, positions and map read once; its
+    4 x D operations per (live position, q head)."""
+    nbytes = live * Hkv * D * elt * 2 + 2 * elt * q_numel \
+        + 4 * (B + B * nb + Hq)
+    return _bound(4 * D * live * Hq, nbytes), nbytes
+
+
+def _time_paged_draft(gen, worst, lens):
+    """#6 at the draft's head shape (smollm-360m: Hq 15, Hkv 5, D 64, GQA
+    group 3) on the serve positions, bf16, 16-position pages: checked
+    against its plain version on the timed inputs, then timed beside it
+    and its bound; no single library call computes it."""
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_plain)
+    B, Hq, Hkv, D, bs, P = 8, 15, 5, 64, 16, 2048
+    nb = 4096 // bs
+    bf = torch.bfloat16
+    pos_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
+    table = torch.zeros(B, nb, dtype=torch.int32, device="cuda")
+    used = 0
+    for b, n in enumerate(lens):
+        table[b, :n // bs + 1] = perm[used:used + n // bs + 1].to(torch.int32)
+        used += n // bs + 1
+    kv_map = (torch.arange(Hq, device="cuda", dtype=torch.int32)
+              // (Hq // Hkv)).to(torch.int32)
+    q = randn(gen, B, Hq, D, dtype=bf)
+    pk, pv = (randn(gen, P, bs, Hkv, D, dtype=bf) for _ in range(2))
+    args = (q, pk, pv, table, pos_t, kv_map)
+    out = paged_attention(*args)
+    torch.cuda.synchronize()
+    e = max_err(out, paged_attention_plain(*args))
+    check(e <= _tols(bf)[0], f"paged at the draft's shape: err {e:.3g}")
+    worst["paged_attention"] = max(worst["paged_attention"], e)
+    ms = time_ms(lambda: paged_attention(*args))
+    dev_ms = device_ms(lambda: paged_attention(*args), "paged_attention")
+    plain_ms = time_ms(lambda: paged_attention_plain(*args))
+    (bound_ms, bound_by), nbytes = _paged_bound(
+        sum(n + 1 for n in lens), Hq, Hkv, D, 2, q.numel(), B, nb)
+    log(json.dumps({"timing": "paged_attention",
+                    "shape_of": "smollm-360m draft decode (D 64, group 3)",
+                    "shape": [B, Hq, Hkv, D, bs], "positions": lens,
+                    "dtype": "bfloat16", "ms": ms, "device_ms": dev_ms,
+                    "plain_ms": plain_ms, "library_ms": None,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "gb_per_s": nbytes / ms / 1e6}))
+
+
+def _time_dense_view(gen, worst):
+    """#6 on the static decode loop's dense caches viewed as a page pool
+    (phase_static_decode: 8 sequences, caches of STATIC_CACHE positions,
+    pages of 125, every sequence at STATIC_PROMPT + 4) at yi-6b's head
+    shape, bf16: checked against its plain version on the timed inputs,
+    timed beside it, its bound and the one library call that computes the
+    same function on the caches, SDPA with the positions' mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_plain)
+    from repro_torch.models.common import contiguous_kv_map, dense_view
+    B, Hq, Hkv, D, S = STATIC_BATCH, 32, 4, 128, STATIC_CACHE
+    pos = STATIC_PROMPT + 4
+    bf = torch.bfloat16
+    bs, table, pos_t = dense_view(B, S, pos, "cuda")
+    q = randn(gen, B, Hq, D, dtype=bf)
+    k, v = (randn(gen, B, S, Hkv, D, dtype=bf) for _ in range(2))
+    kv_map = contiguous_kv_map(Hq, Hkv, "cuda")
+    args = (q, k.view(-1, bs, Hkv, D), v.view(-1, bs, Hkv, D), table, pos_t,
+            kv_map)
+    out = paged_attention(*args)
+    torch.cuda.synchronize()
+    e = max_err(out, paged_attention_plain(*args))
+    check(e <= _tols(bf)[0], f"paged on the dense view: err {e:.3g}")
+    worst["paged_attention"] = max(worst["paged_attention"], e)
+    q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    mask = (torch.arange(S, device="cuda") <= pos)[None, None, None, :]
+    lib = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                         enable_gqa=True)[:, :, 0]
+    e_lib = max_err(out, lib)
+    ms = time_ms(lambda: paged_attention(*args))
+    dev_ms = device_ms(lambda: paged_attention(*args), "paged_attention")
+    plain_ms = time_ms(lambda: paged_attention_plain(*args))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask, enable_gqa=True))
+    (bound_ms, bound_by), nbytes = _paged_bound(
+        B * (pos + 1), Hq, Hkv, D, 2, q.numel(), B, S // bs)
+    log(json.dumps({"timing": "paged_attention",
+                    "shape_of": "static decode, dense view",
+                    "shape": [B, Hq, Hkv, D, bs], "cache_positions": S,
+                    "position": pos, "dtype": "bfloat16", "ms": ms,
+                    "device_ms": dev_ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms,
+                    "library": "scaled_dot_product_attention(attn_mask, "
+                               "enable_gqa) on the caches",
+                    "library_max_abs_diff": e_lib,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "gb_per_s": nbytes / ms / 1e6}))
 
 
 def _time_bwd(gen, B, Hq, Hkv, T, D, worst):
@@ -2658,6 +3019,8 @@ def main():
         phase(phase_ssd_shards, worst)
         launches, counts = phase(phase_serve)
         phase(phase_serve_features)
+        phase(phase_serve_faults)
+        phase(phase_static_decode)
         train_launches, train_losses, train_peak = phase(phase_train)
         phase(phase_train_features, train_losses, train_peak)
         phase(phase_train_restart, train_losses)

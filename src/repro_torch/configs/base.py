@@ -161,9 +161,8 @@ class RunConfig:
     accum_steps: int = 1
     # Deterministic fault injection plan (runtime/faults.py DSL, "" =
     # none), validated here; the train loop fires its train.* and ckpt.*
-    # sites, and the serve engine refuses a serve.* site (ROADMAP Queue A,
-    # item A3).  The whole fault sequence is a pure function of
-    # (fault_seed, site, kind, step).
+    # sites, the serve engine its serve.* sites.  The whole fault sequence
+    # is a pure function of (fault_seed, site, kind, step).
     fault_plan: str = ""
     fault_seed: int = 0
     # Non-finite update skips tolerated per step before the train loop

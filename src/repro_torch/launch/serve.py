@@ -55,6 +55,21 @@ runs the same engine loop in lockstep on the [data, depth, rows, cols]
 mesh, NCCL on the cards and gloo on the CPU; each rank takes card
 ``LOCAL_RANK`` before anything else, and rank 0 prints.
 ``--profile-steps N`` then profiles N decode steps on rank 0.
+
+Faults (the reference's ``--fault-plan``, ``--fault-seed`` and
+``--replan-to``): a plan of ``serve.*`` sites, seeded, fires on every rank
+at the same engine step; ``--replan-to N`` runs two engine steps, then
+re-plans onto the first N ranks (data shrinks, the tensor-parallel group
+is kept) and serves on:
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.serve --arch yi-6b --data 2 --depth 2 \
+        --requests 8 --n-slots 8 --prompt-lens 128,512 --new-tokens 16 \
+        --block-size 16 --num-blocks 1024 --max-seq-len 1024 \
+        --fault-plan "serve.logits@2:nan(3);serve.step@4:drop_step" \
+        --replan-to 2
+
+The ranks past the survivors wait at a barrier over the world and leave.
 """
 from __future__ import annotations
 
@@ -97,6 +112,14 @@ def main(argv=None):
                     help="attention data path: the CUDA kernels (flash "
                          "prefill + paged decode), the plain PyTorch "
                          "versions, or auto (kernels on a GPU)")
+    ap.add_argument("--replan-to", type=int, default=0,
+                    help="after 2 engine steps, re-plan onto this many "
+                         "ranks and move the live KV blocks (elastic)")
+    ap.add_argument("--fault-plan", default="",
+                    help="deterministic fault schedule, e.g. "
+                         "'serve.logits@2:nan(1);serve.step@4:drop_step'")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed for the fault schedule (replays identically)")
     ap.add_argument("--deadline-s", type=float, default=0.0,
                     help="per-request completion deadline (0 = none)")
     ap.add_argument("--ttft-budget-s", type=float, default=0.0,
@@ -151,7 +174,8 @@ def main(argv=None):
 
     arch = get_reduced(args.arch) if args.reduced else get_arch(args.arch)
     run = RunConfig(param_dtype=args.dtype, compute_dtype=args.dtype,
-                    attn_impl=args.attn_impl, use_pallas=True)
+                    attn_impl=args.attn_impl, use_pallas=True,
+                    fault_plan=args.fault_plan, fault_seed=args.fault_seed)
     ctx = ParallelContext(mode=args.mode, data=args.data, depth=args.depth,
                           rows=args.rows, cols=args.cols,
                           matmul_schedule=args.matmul_schedule,
@@ -199,15 +223,29 @@ def main(argv=None):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     kops.reset_launches()
+    if args.replan_to:
+        engine.step()
+        engine.step()
+        rp = engine.replan_to(args.replan_to)
+        if rank0:
+            print(f"replanned to {rp.n_used} devices: data={rp.ctx.data} "
+                  f"[q={rp.ctx.rows},{rp.ctx.cols},d={rp.ctx.depth}] "
+                  f"(idle={rp.n_idle})", flush=True)
     results = engine.run()
+    if not engine.active:
+        # a rank the re-plan left idle: nothing to report
+        _world_barrier()
+        return engine
     launches = dict(kops.LAUNCHES)
     peaks = None
+    mesh = engine.mesh              # the survivors' mesh after a re-plan
     if cuda:
         torch.cuda.synchronize()
         peak = torch.tensor([torch.cuda.max_memory_allocated() / 2**30],
                             dtype=torch.float64, device=dev)
         peaks = col.all_gather_inv(mesh, peak, AXES, tiled=True).tolist()
     s = engine.stats
+    ctx = engine.model.ctx
     if rank0:
         for r in reqs:
             print(f"req {r.rid} (prompt {r.orig_prompt_len}, "
@@ -226,7 +264,9 @@ def main(argv=None):
               f"itl p50={itl['p50_ms']:.1f}ms p99={itl['p99_ms']:.1f}ms "
               f"shed={s.shed} failed={s.failed} "
               f"nan_quarantines={s.nan_quarantines} "
-              f"batch_shrinks={s.batch_shrinks}")
+              f"batch_shrinks={s.batch_shrinks} "
+              f"dropped_steps={s.dropped_steps} "
+              f"pool_exhaust_events={s.pool_exhaust_events}")
         if args.prefix_cache or args.prefill_chunk:
             print(f"prefix: hit_rate={s.cache_hit_rate():.3f} "
                   f"hits={s.prefix_hits}/{s.prefix_lookups} "
@@ -255,7 +295,16 @@ def main(argv=None):
         profile = _profile_decode(engine, rng, args.profile_steps, rank0)
         if rank0:
             print(json.dumps(profile), flush=True)
+    _world_barrier()
     return engine
+
+
+def _world_barrier() -> None:
+    """Every rank of the world, the ones a re-plan left idle too, meets
+    here before the process group goes."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def _reduce_profile(prof, n):

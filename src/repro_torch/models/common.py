@@ -7,7 +7,9 @@ the plain versions beside them.  The reference's ``decode_pos_mask`` (the
 jnp decode path's hoisted mask) lives inside
 ``kernels/paged_attention.py::paged_attention_plain``.
 
-The chunked-prefill primitives at the end serve the engine's chunk and
+The dense-cache primitives (``cache_update``, ``decode_attention`` over the
+``dense_view`` of the caches) serve the static decode loop; the
+chunked-prefill primitives at the end serve the engine's chunk and
 speculative-verify steps.  ``chunk_attention`` is plain PyTorch on every
 device: the reference computes it as a full-score fp32 masked softmax in
 jnp whatever ``attn_impl`` says, so it has no Pallas kernel to port.
@@ -123,6 +125,52 @@ def paged_attention(q, pool_k, pool_v, table, pos, *, kv_map,
     fn = paged_kernel if path == "pallas" else paged_attention_plain
     return fn(q.contiguous(), pool_k, pool_v, table, pos, kv_map,
               local_window=local_window, softmax_scale=softmax_scale)
+
+
+def decode_bs(S: int) -> int:
+    """Page size of a dense cache's pool view: the largest divisor of S up
+    to 128 (the reference's ``_decode_bs``)."""
+    bs = min(128, S)
+    while S % bs:
+        bs -= 1
+    return bs
+
+
+def dense_view(B: int, S: int, cur_pos: int, device):
+    """The block table of B dense caches of S positions viewed as one
+    contiguous page pool, (page size, table [B, S / bs] int32 =
+    arange(B * S / bs), positions [B] int32 all ``cur_pos``); position-only,
+    so a decode step builds it once for all layers."""
+    bs = decode_bs(S)
+    table = torch.arange(B * (S // bs), dtype=torch.int32,
+                         device=device).reshape(B, S // bs)
+    return bs, table, torch.full((B,), cur_pos, dtype=torch.int32,
+                                 device=device)
+
+
+def cache_update(cache, new_k, new_v, cur_pos: int):
+    """Write one step's K/V [B, 1, Hkv, D] into the layer's dense cache
+    {"k", "v": [B, S, Hkv, D]} at position ``cur_pos``, in place."""
+    cache["k"][:, cur_pos] = new_k[:, 0].to(cache["k"].dtype)
+    cache["v"][:, cur_pos] = new_v[:, 0].to(cache["v"].dtype)
+
+
+def decode_attention(q, k_cache, v_cache, view, *, kv_map,
+                     local_window: int = 0, softmax_scale=None,
+                     impl: str = "jnp"):
+    """Single-step attention against dense caches: q [B, Hq, D], k_cache /
+    v_cache [B, S, Hkv, D] holding the new token's K/V at ``cur_pos``,
+    ``view`` = dense_view(B, S, cur_pos): the caches are viewed as a
+    contiguous page pool and the paged decode runs on it (the reference's
+    ``decode_attention`` with impl="pallas"; its jnp path's masked softmax
+    is the paged kernel's plain version)."""
+    bs, table, pos = view
+    B, S, Hkv, D = k_cache.shape
+    pool_k = k_cache.reshape(B * (S // bs), bs, Hkv, D)
+    pool_v = v_cache.reshape(B * (S // bs), bs, Hkv, v_cache.shape[-1])
+    return paged_attention(q, pool_k, pool_v, table, pos, kv_map=kv_map,
+                           local_window=local_window,
+                           softmax_scale=softmax_scale, impl=impl)
 
 
 def paged_gather(pool_k, pool_v, table, kv_map=None):

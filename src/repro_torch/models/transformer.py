@@ -23,7 +23,12 @@ prefill, the prefix cache and speculative verify).  Training entry point,
 on one rank or across the mesh: ``loss`` (the mean next-token
 cross-entropy of a batch, differentiable in every local parameter; the
 step syncs the gradients of replicated leaves, ``runtime/steps.py``).  The
-dense static decode loop is not ported yet (ROADMAP Queue A).
+dense static decode loop (the reference's ``build_prefill_step`` /
+``build_decode_step`` path, ``runtime/serve_steps.py``): ``prefill``
+without ``lengths`` (greedy next ids and the cache, the batch over data)
+and ``decode`` (one greedy step for every sequence against a dense cache
+[L, b, S, Hkv_loc, D], written in place), whose attention views the cache
+as a contiguous page pool and runs the paged decode kernel (#6) on it.
 """
 from __future__ import annotations
 
@@ -36,7 +41,7 @@ from ..core import collectives as col
 from ..core import remat
 from ..core.api import ParallelContext
 from ..core.mesh import Mesh, local_block
-from ..core.ops import Plan, kv_group_axes, make_ops
+from ..core.ops import Plan, kv_group_axes, make_ops, ops_last_token
 from . import common as cm
 
 WINIT_SCALE = 0.02     # reference common.winit
@@ -314,13 +319,18 @@ class DenseLM(nn.Module):
         return x, (kf.to(self.cdt), vf.to(self.cdt))
 
     @torch.no_grad()
-    def prefill(self, tokens, lengths):
+    def prefill(self, tokens, lengths=None):
         """Process right-padded prompts tokens [B, S] with true ``lengths``
         [B] (host layout, the same on every rank; B over data, S over the
         sequence axes).  Returns (full-vocab logits [B, v_pad] float32 at
         each request's last position, the same on every rank; cache {"k",
         "v": [L, B, S, Hkv_loc, D]}, every request's full-sequence K/V of
-        this rank's KV heads)."""
+        this rank's KV heads).
+
+        Without ``lengths`` (the static serve steps: prompts of one length
+        S) it returns (greedy next ids [B, 1] int32 at the last column, the
+        same on every rank; this rank's block of the cache,
+        ``cache_abstract(B, S, prefill plan)``: the batch over data)."""
         ops = make_ops(self.ctx, self.mesh, Plan.for_shape("prefill"))
         ids = ops.host_block(tokens, ops.tokens_in_axes())
         x = ops.embed(ids, self.embed).to(self.cdt)
@@ -330,6 +340,10 @@ class DenseLM(nn.Module):
             ks.append(k)
             vs.append(v)
         x = self._final(ops, x)
+        if lengths is None:
+            ids = ops.head_sample(ops_last_token(ops, x), self._w(self.head),
+                                  vocab_real=self.cfg.vocab_size)
+            return ids[:, None], {"k": torch.stack(ks), "v": torch.stack(vs)}
         lens = ops.host_block(lengths, (("data",),))
         # every rank gets every request's K/V: a request's blocks may live
         # in a KV group of another data coordinate
@@ -394,6 +408,71 @@ class DenseLM(nn.Module):
         return Plan.for_shape("decode", global_batch=n_slots,
                               batch_shards=self.ctx.batch_shards,
                               data=self.ctx.data)
+
+    def cache_batch_axes(self, plan: Plan) -> tuple:
+        """Mesh axes the cache's batch dim is split over under ``plan``
+        (the reference's ``cache_abstract`` and ``prefill_cache_specs``):
+        the prefill cache over data, the decode cache over the plan's
+        token axes."""
+        if plan.kind == "decode":
+            return self.ctx.token_axes
+        if plan.kind in ("prefill", "decode_dp"):
+            return (self.ctx.axis_data,)
+        return ()
+
+    def cache_abstract(self, batch: int, seq_len: int,
+                       plan: Plan | None = None):
+        """(shape, dtype) of this rank's block of each cache leaf for a
+        global ``batch`` of ``seq_len`` positions under ``plan`` (default
+        ``decode_plan(batch)``): "k" and "v" [L, b, seq_len, Hkv_loc, D] in
+        the compute dtype, b the batch over ``cache_batch_axes``."""
+        plan = plan or self.decode_plan(batch)
+        b = batch // self.mesh.axis_size(self.cache_batch_axes(plan))
+        shape = (self.cfg.num_layers, b, seq_len, self.Hkv_loc, self.D)
+        return {"k": (shape, self.cdt), "v": (shape, self.cdt)}
+
+    def _block_decode(self, blk, x, cache_l, pos, view, ops, kv_map):
+        h = self._norm(ops, x, blk.ln1, getattr(blk, "ln1b", None))
+        q, k, v = self._qkv(blk, h, ops, view[2][:1])
+        cm.cache_update(cache_l, k, v, pos)
+        out = cm.decode_attention(q[:, 0], cache_l["k"], cache_l["v"], view,
+                                  kv_map=kv_map,
+                                  local_window=self.cfg.local_window,
+                                  impl=self.ctx.attn_impl)
+        x = x + self._attn_out(blk, out[:, None], ops)
+        h2 = self._norm(ops, x, blk.ln2, getattr(blk, "ln2b", None))
+        return x + self._mlp(blk, h2, ops)
+
+    @torch.no_grad()
+    def decode(self, cache, ids, pos):
+        """One greedy step for every sequence: ids [B, 1] (host layout, the
+        same on every rank) at position ``pos`` (an int, the same for every
+        sequence) -> (next ids [B, 1] int32, the same on every rank; the
+        cache).  ``cache`` is this rank's block under ``decode_plan(B)``
+        (``runtime/serve_steps.py`` moves a prefill cache there); each
+        layer writes its K/V at ``pos`` in place."""
+        ops = make_ops(self.ctx, self.mesh, self.decode_plan(ids.shape[0]))
+        S = cache["k"].shape[2]
+        want = self.cache_abstract(ids.shape[0], S, ops.plan)["k"][0]
+        if tuple(cache["k"].shape) != want:
+            raise ValueError(
+                f"decode: cache {tuple(cache['k'].shape)} is not this "
+                f"rank's block {want} of the {ops.plan.kind} layout")
+        pos = int(pos)
+        if not 0 <= pos < S:
+            raise ValueError(f"decode: position {pos} outside the cache's "
+                             f"{S} positions")
+        x = ops.embed(ops.host_block(ids, ops.tokens_in_axes()),
+                      self.embed).to(self.cdt)
+        # position-only work, shared by every layer
+        view = cm.dense_view(x.shape[0], S, pos, x.device)
+        kv_map = self._kv_map(x.device)
+        for i, blk in enumerate(self.blocks):
+            cache_l = {"k": cache["k"][i], "v": cache["v"][i]}
+            x = self._block_decode(blk, x, cache_l, pos, view, ops, kv_map)
+        ids = ops.head_sample(self._final(ops, x), self._w(self.head),
+                              vocab_real=self.cfg.vocab_size)
+        return ids[:, None], cache
 
     def _block_decode_paged(self, blk, x, pool_l, table, pos, ops, *, idx,
                             kv_map):

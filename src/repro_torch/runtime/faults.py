@@ -21,9 +21,8 @@ Sites and the kinds each accepts:
     serve.prefix evict | flush
 
 The port's train loop (``runtime/train_loop.py``) wires the ``train.*``
-and ``ckpt.*`` sites, and the serve engine the ``serve.prefix`` site; the
-engine refuses a plan that names ``serve.step`` or ``serve.logits``
-(ROADMAP Queue A, item A3).
+and ``ckpt.*`` sites, and the serve engine (``serve/engine.py``) the
+``serve.*`` sites.
 
 A ``FaultInjector`` wraps a plan with once-per-occurrence semantics: each
 spec fires on its first ``attempts`` executions of its (site, step) and

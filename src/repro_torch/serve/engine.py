@@ -9,12 +9,20 @@ per request, retire finished sequences in place.
 The decode batch shape never changes across steps — batch composition does:
 retired slots point at the scratch block until re-admission.
 
-SLO guardrails kept from the reference: a bounded admission queue
-(QueueFullError), per-request deadlines and TTFT budgets against an
-injectable engine clock, a NaN/Inf logit guard that quarantines only the
-poisoned slot (re-prefill with the position-keyed sampler keeps its tokens),
-and a graceful decode-batch shrink after repeated pool-OOM preemption
-storms.
+SLO guardrails and chaos hardening kept from the reference: a bounded
+admission queue (QueueFullError), per-request deadlines and TTFT budgets
+against an injectable engine clock, a NaN/Inf logit guard that quarantines
+only the poisoned slot (re-prefill with the position-keyed sampler keeps
+its tokens), a graceful decode-batch shrink after repeated pool-OOM
+preemption storms, and a healthy/degraded state in ``EngineStats``.  A
+``runtime/faults.FaultInjector`` (default: the model's fault plan, its
+``serve.*`` sites) drives all of it deterministically: ``serve.step``
+(drop_step, straggler, pool_exhaust, device_loss), ``serve.logits`` (nan,
+inf) and ``serve.prefix`` (evict, flush).  A device loss, or a call of
+``replan_to``, re-plans the engine onto the surviving ranks
+(``runtime/elastic.replan``: the tensor-parallel group is kept whole and
+data shrinks) and moves every running request's resident KV blocks into
+its new KV group's partition.
 
 Shared-prompt serving: ``prefix_cache`` indexes prompt prefixes in a radix
 tree over refcounted pool pages (``serve/prefix_cache.py``); a hit shares
@@ -29,9 +37,7 @@ the target verifies them all in one multi-token forward
 (``DenseLM.verify_chunk_paged``) and commits the accepted prefix plus one
 correction or bonus token; greedy acceptance is exact and sampled
 acceptance is rejection sampling, so the committed tokens are the plain
-engine's.  The ``serve.prefix`` fault site (evict, flush) is wired; a plan
-naming ``serve.step`` or ``serve.logits`` is refused, as are elastic
-replans (ROADMAP Queue A).
+engine's.
 
 Across ranks every rank runs this same host loop in lockstep (multi-
 controller): each holds the same scheduler and allocator state and calls
@@ -43,7 +49,14 @@ that deadlines and TTFT budgets read, which is rank 0's clock broadcast to
 all (``_now``); each rank's own clock stamps only its statistics.  The
 radix tree, the n-gram proposals, the draft's greedy argmax and the
 accept/reject test read only host tokens and gathered logits, and a
-copy-on-write copy writes only on the ranks of the slot's KV group.
+copy-on-write copy writes only on the ranks of the slot's KV group.  The
+fault plan is the same on every rank, so a fault fires on every rank at
+the same engine step: a poisoned logit row is the same row everywhere, and
+a device loss re-plans every rank at once.  After a re-plan the ranks past
+the survivors are idle (``active`` False): their ``step`` returns ``[]``
+and ``run`` ``{}``, and they call no collective of the new mesh.  Every
+rank builds the new mesh's process groups, so a run re-plans across ranks
+once.
 """
 from __future__ import annotations
 
@@ -53,13 +66,18 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.collectives import broadcast_scalar
 from ..core.device import resolve_device
+from ..core.mesh import AXES, Mesh, axis_index
+from ..core.ops import Plan, kv_group_axes
 from ..kernels.ops import effective_attn_impl
+from ..models.registry import build_model
+from ..runtime.elastic import replan
 from ..runtime.faults import injector_from_run
 from ..runtime.steps import page_copy, paged_reshard
-from .kv_cache import PagedCacheConfig, PagedKVCache
+from .kv_cache import BlockPool, PagedCacheConfig, PagedKVCache
 from .prefix_cache import RadixPrefixCache
 from .sampling import (SamplingParams, sample_tokens, slot_arrays,
                        spec_accept, spec_target_probs)
@@ -123,6 +141,8 @@ class EngineStats:
     failed: int = 0              # requests terminally FAILED (incl. sheds)
     nan_quarantines: int = 0     # poisoned-slot quarantine -> re-prefill
     batch_shrinks: int = 0       # max_active reductions after OOM storms
+    pool_exhaust_events: int = 0  # injected KV-pool exhaustion windows
+    dropped_steps: int = 0       # injected lost engine iterations
     # --- shared-prompt serving ---
     prefix_lookups: int = 0      # admissions that consulted the radix cache
     prefix_hits: int = 0         # admissions that reused cached pages
@@ -179,7 +199,28 @@ class InferenceEngine:
 
     def __init__(self, model, cfg: EngineConfig, *, device="cuda",
                  clock=None, draft_model=None, injector=None):
-        self.device = resolve_device(device)
+        self.model, self.cfg = model, cfg
+        self._device = device
+        self.draft_model = draft_model
+        self.injector = (injector if injector is not None
+                         else injector_from_run(model.run, sites=("serve",)))
+        # injectable wall clock: deadline/TTFT tests drive a fake clock
+        self.clock = clock or time.perf_counter
+        self.active = True       # False on a rank a re-plan left idle
+        self._hostage = None     # injected pool-exhaustion hold
+        self._oom_streak = 0     # consecutive steps with preemptions
+        self._calm_streak = 0    # consecutive steps without
+        self._evict_carry = 0    # cache evictions from pre-replan caches
+        self._build()
+        self.stats = EngineStats()   # survive replan rebuilds
+        self.requests = []
+
+    def _build(self) -> None:
+        """Everything that depends on the model's mesh: the decode plan,
+        the pool and its allocator, the scheduler, the prefix cache and
+        the proposer (``replan_to`` runs it again on the new mesh)."""
+        model, cfg = self.model, self.cfg
+        self.device = resolve_device(self._device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine runs "
                              f"on {self.device}")
@@ -187,21 +228,7 @@ class InferenceEngine:
             raise NotImplementedError(
                 f"{type(model).__name__} has no paged decode path: serve it "
                 f"through its prefill/decode steps")
-        self.injector = (injector if injector is not None
-                         else injector_from_run(model.run, sites=("serve",)))
-        if self.injector is not None:
-            unported = sorted({s.site for s in self.injector.plan.specs}
-                              & {"serve.step", "serve.logits"})
-            if unported:
-                raise NotImplementedError(
-                    f"the fault plan names {', '.join(unported)}: only the "
-                    f"serve.prefix site is ported (ROADMAP Queue A, item A3)")
-        self.model, self.cfg = model, cfg
         self.mesh = model.mesh
-        # injectable wall clock: deadline/TTFT tests drive a fake clock
-        self.clock = clock or time.perf_counter
-        self._oom_streak = 0     # consecutive steps with preemptions
-        self._calm_streak = 0    # consecutive steps without
         ctx = model.ctx
         # resolved attention data path ("pallas" = the Hopper kernels)
         self.attn_impl = effective_attn_impl(ctx.attn_impl, self.device)
@@ -233,14 +260,11 @@ class InferenceEngine:
         if cfg.prefix_cache:
             self.prefix = RadixPrefixCache(self.cache.pool, cfg.block_size)
             self.sched.prefix_cache = self.prefix
-        self.draft_model = draft_model
         self._spec_on = cfg.spec_k > 0
         self._draft = self._ngram = None
         self.spec_mode = None
         if self._spec_on:
             self._build_proposer()
-        self.stats = EngineStats()
-        self.requests = []
 
     def _build_proposer(self) -> None:
         cfg, model, draft = self.cfg, self.model, self.draft_model
@@ -294,6 +318,9 @@ class InferenceEngine:
                     ttft_budget_s: float | None = None) -> Request:
         """sampling defaults PER CALL.  Raises QueueFullError when
         cfg.max_waiting bounds the queue."""
+        if not self.active:
+            raise RuntimeError("this rank left the mesh at a re-plan: its "
+                               "engine takes no requests")
         if self.cfg.max_waiting and \
                 len(self.sched.waiting) >= self.cfg.max_waiting:
             raise QueueFullError(
@@ -543,19 +570,73 @@ class InferenceEngine:
                 self.sched.retire(req)
         return emitted
 
-    def _fire_prefix_faults(self, idx: int) -> None:
-        """The serve.prefix injections due at engine step ``idx``: a flush
-        of the whole index, or forced eviction pressure (only refcount-1
-        leaves may go, so pages shared with running requests survive)."""
+    # ------------------------------------------------------ fault plumbing
+    def _exhaust_pool(self, idx: int, hold_steps: int) -> None:
+        """Injected KV-pool exhaustion: take every free block hostage for
+        ``hold_steps`` engine steps (drives the preemption storm and the
+        batch-shrink recovery)."""
+        held = []
+        for g in range(self.cache.n_groups):
+            n = self.cache.pool.available(g)
+            if n:
+                held.extend(self.cache.pool.alloc(g, n))
+        self._hostage = {"blocks": held, "until": idx + max(1, hold_steps)}
+        self.stats.pool_exhaust_events += 1
+
+    def _release_hostages(self, idx: int) -> None:
+        if self._hostage is not None and idx >= self._hostage["until"]:
+            self.cache.pool.free(self._hostage["blocks"])
+            self._hostage = None
+
+    def _fire_step_faults(self, idx: int) -> bool:
+        """Run the serve.step and serve.prefix injections due at engine step
+        ``idx``; returns True when this iteration is dropped entirely."""
+        dropped = False
+        for spec in self.injector.fire("serve.step", idx):
+            if spec.kind == "drop_step":
+                dropped = True
+            elif spec.kind == "straggler":
+                time.sleep(spec.arg)
+            elif spec.kind == "pool_exhaust":
+                self._exhaust_pool(idx, int(spec.arg))
+            elif spec.kind == "device_loss":
+                if self.mesh.rank == 0:
+                    print(f"[fault] serve step {idx}: device loss -> replan "
+                          f"to {int(spec.arg)} devices", flush=True)
+                self.replan_to(int(spec.arg))
+                if not self.active:
+                    return dropped
         for spec in self.injector.fire("serve.prefix", idx):
             if self.prefix is None:
                 continue
             if spec.kind == "flush":
                 self.prefix.flush()
             elif spec.kind == "evict":
+                # forced eviction pressure: only refcount-1 leaves may go,
+                # so pages shared with running requests survive
                 want = max(1, int(spec.arg))
                 for g in range(self.cache.n_groups):
                     self.prefix.evict(g, want)
+        return dropped
+
+    def _poison_logits(self, logits, idx: int) -> None:
+        """The serve.logits injections due at step ``idx``: row ``arg %
+        n_slots`` of the logits on the device set to NaN or +Inf (what a
+        flaky accelerator hands the sampler), the same row on every
+        rank."""
+        if self.injector is None:
+            return
+        for spec in self.injector.fire("serve.logits", idx):
+            logits[int(spec.arg) % logits.shape[0]] = (
+                float("nan") if spec.kind == "nan" else float("inf"))
+
+    def _update_health(self) -> None:
+        degraded = (self.sched.max_active < self.cfg.n_slots
+                    or self._hostage is not None)
+        self.stats.health = "degraded" if degraded else "healthy"
+        if self.prefix is not None:
+            self.stats.cache_evictions = (self._evict_carry
+                                          + self.prefix.evictions)
 
     # --------------------------------------------------------- speculation
     def _judge(self, req, rows, toks, proposals):
@@ -591,7 +672,7 @@ class InferenceEngine:
             committed.append(int(toks[len(proposals)]))
         return committed, m
 
-    def _spec_round(self, running):
+    def _spec_round(self, running, idx: int):
         """One speculative decode round: propose up to k tokens per slot,
         verify them all in one multi-token forward over the block tables,
         commit the accepted prefix (+1 correction or bonus token) in place.
@@ -630,6 +711,7 @@ class InferenceEngine:
                                            self._tensor(pos),
                                            self._tensor(lens))
         self.stats.spec_rounds += 1
+        self._poison_logits(lg, idx)
         ok = self._finite_rows(lg.reshape(n, -1))
         temps, ks, ps, seeds = slot_arrays(samplings)
         posmat = pos[:, None] + 1 + np.arange(W, dtype=np.int32)[None, :]
@@ -675,9 +757,9 @@ class InferenceEngine:
         return emitted
 
     # --------------------------------------------------------------- decode
-    def _run_decode(self, running):
-        """One fixed-shape paged decode step over every slot; returns the
-        [(rid, token)] emitted."""
+    def _run_decode(self, running, idx: int):
+        """One fixed-shape paged decode step over every slot (engine step
+        ``idx``); returns the [(rid, token)] emitted."""
         n = self.cfg.n_slots
         ids = np.zeros((n, 1), np.int32)
         pos = np.zeros((n,), np.int32)
@@ -694,6 +776,7 @@ class InferenceEngine:
         logits = self.model.decode_paged(self.pool, self._tensor(tables),
                                          self._tensor(ids), self._tensor(pos))
         self.stats.decode_steps += 1
+        self._poison_logits(logits, idx)
         ok = self._finite_rows(logits)
         temps, ks, ps, seeds = slot_arrays(samplings)
         toks = sample_tokens(logits, temps, ks, ps, seeds, pos + 1)
@@ -717,10 +800,24 @@ class InferenceEngine:
     # ---------------------------------------------------------------- step
     def step(self):
         """One engine iteration; returns [(rid, token)] emitted this step."""
+        if not self.active:
+            return []
         t0 = time.perf_counter()
-        if self.injector is not None:
-            self._fire_prefix_faults(self.stats.steps)
+        idx = self.stats.steps
+        self._release_hostages(idx)
+        dropped = (self._fire_step_faults(idx)
+                   if self.injector is not None else False)
+        if not self.active:      # a device loss left this rank idle
+            return []
         self._shed_expired()
+        if dropped:
+            # a lost engine iteration: no admission, no decode; the
+            # position-keyed sampler keeps the survivors' tokens
+            self.stats.dropped_steps += 1
+            self.stats.steps += 1
+            self.stats.wall += time.perf_counter() - t0
+            self._update_health()
+            return []
         admitted = self.sched.admit()
         if self.sched.admission_failures:
             self.stats.failed += len(self.sched.admission_failures)
@@ -748,9 +845,9 @@ class InferenceEngine:
         if not running:
             emitted = []
         elif self._spec_on:
-            emitted = self._spec_round(running)
+            emitted = self._spec_round(running, idx)
         else:
-            emitted = self._run_decode(running)
+            emitted = self._run_decode(running, idx)
         # pool-OOM pressure control: repeated preemption storms shrink the
         # admission cap (graceful decode-batch shrink); calm steps grow it
         # back toward n_slots
@@ -776,20 +873,173 @@ class InferenceEngine:
         self.stats.tokens += new_tokens
         if new_tokens:
             self.stats.token_times.extend([dt / new_tokens] * new_tokens)
-        self.stats.health = ("degraded"
-                             if self.sched.max_active < self.cfg.n_slots
-                             else "healthy")
-        if self.prefix is not None:
-            self.stats.cache_evictions = self.prefix.evictions
+        self._update_health()
         return emitted
 
     def run(self, max_steps: int = 100000):
         """Drive until every request finishes; returns {rid: generated
-        tokens} for every request this engine has ever accepted."""
+        tokens} for every request this engine has ever accepted ({} on a
+        rank a re-plan left idle)."""
         for _ in range(max_steps):
+            if not self.active:
+                return {}
             if not self.sched.has_work:
                 break
             self.step()
         else:
             raise RuntimeError("engine did not drain (stuck scheduler?)")
         return {r.rid: list(r.generated) for r in self.requests}
+
+    # -------------------------------------------------------------- elastic
+    def replan_to(self, n_devices: int):
+        """Re-plan onto the first ``n_devices`` ranks and move the live KV
+        blocks (the reference's ``replan_to``, multi-controller).
+
+        Every rank runs this at the same engine step.  ``runtime/elastic.
+        replan`` keeps the tensor-parallel group whole and shrinks data,
+        the outermost mesh axis, so a surviving rank keeps its (depth, row,
+        col) coordinates and its parameter blocks: the model (and the
+        draft) is rebuilt on a ``Mesh`` over the survivors and loads them
+        through ``state_dict``.  Injected hostages are dropped (they hold
+        the old pool's block ids), the prefix index starts empty (its
+        evictions carry into the stats), the draft pool starts zeroed, and
+        the scheduler's queue, admission clock and cap carry over.  Each
+        running request gets blocks in its new KV group's partition, and
+        its resident blocks move there over the old mesh before the ranks
+        past the survivors go idle; a request its new group cannot host is
+        preempted for a later re-prefill.  Returns the ``Replan``."""
+        if not self.active:
+            raise RuntimeError("this rank left the mesh at an earlier "
+                               "re-plan")
+        if self.mesh.size < self.mesh.world:
+            # the ranks an earlier re-plan left idle build no more groups
+            raise RuntimeError("a run re-plans across ranks once")
+        cfg = self.cfg
+        rp = replan(n_devices, self.model.ctx, global_batch=cfg.n_slots)
+        # hostages hold the old pool's block ids: drop them, never free
+        # them into the rebuilt pool
+        self._hostage = None
+        if self.prefix is not None:
+            self._evict_carry += self.prefix.evictions
+        old = dict(mesh=self.mesh, sched=self.sched, cache=self.cache,
+                   pool=self.pool)
+        mesh = Mesh(rp.ctx)      # collective: every rank builds its groups
+        plan = Plan.for_shape("decode", global_batch=cfg.n_slots,
+                              batch_shards=rp.ctx.batch_shards,
+                              data=rp.ctx.data)
+        new_axes = kv_group_axes(rp.ctx, plan)
+        if mesh.active:
+            self.model = _rebuild(self.model, rp.ctx, mesh)
+            if self.draft_model is not None:
+                self.draft_model = _rebuild(
+                    self.draft_model,
+                    self.draft_model.ctx.replace(data=rp.ctx.data), mesh)
+            self._build()
+            for r in self.requests:
+                r.draft_cached = 0
+            # the admission clock carries too: carried residents keep their
+            # admit_seq, and a reset clock would invert eviction priority
+            self.sched.waiting = old["sched"].waiting
+            self.sched._admit_clock = old["sched"]._admit_clock
+            self.sched.max_active = old["sched"].max_active
+            self.sched.admission_failures = old["sched"].admission_failures
+            alloc = self.cache.pool
+        else:
+            n_groups = mesh.axis_size(new_axes)
+            alloc = BlockPool(n_groups, cfg.num_blocks // n_groups)
+        spg = cfg.n_slots // alloc.n_groups
+        moves = [(slot, req, slot // spg,
+                  alloc.alloc(slot // spg, len(req.block_ids)))
+                 for slot, req in enumerate(old["sched"].slots)
+                 if req is not None]
+        _move_blocks(old, mesh, new_axes, alloc.blocks_per_group, moves,
+                     self.pool if mesh.active else None)
+        if not mesh.active:
+            self.active = False
+            self.mesh = mesh
+            self.model = self.draft_model = self.pool = self._draft = None
+            return rp
+        for slot, req, _, blocks in moves:
+            if blocks is None:
+                # the new group cannot host it: evict, re-prefill later
+                req.block_ids = []
+                self.sched.preempt(req)
+                continue
+            req.block_ids = blocks
+            req.slot = slot
+            self.sched.slots[slot] = req
+        return rp
+
+
+def _rebuild(model, ctx, mesh):
+    """``model`` rebuilt for ``ctx`` on ``mesh`` with its own parameters:
+    the layout keeps this rank's model coordinates, so its blocks load as
+    they are (``load_state_dict`` refuses a shape that differs)."""
+    new = build_model(model.cfg, ctx, model.run, device=model.device,
+                      mesh=mesh)
+    new.load_state_dict(model.state_dict())
+    return new
+
+
+def _move_blocks(old, mesh, new_axes, new_bpg, moves, pool) -> None:
+    """Copy each moved request's resident blocks from its old KV group's
+    partition (``old``: the old mesh, scheduler, cache and pool) into the
+    blocks allocated in its new group's (``moves``: (slot, request, new
+    group, new block ids or None)), this rank's part of it.  For each
+    rank of the new mesh in the request's new group the source is the
+    lowest rank of the old mesh in its old group with the same col
+    coordinate (the same KV heads); a rank sends each peer one tensor of
+    [k|v, L, blocks, bs, Hkv_loc, D] and receives one from each, point
+    to point over the world's ranks, whose numbers the old and the new
+    mesh share.  ``pool``: this rank's new partition (None on a rank
+    leaving the mesh)."""
+    old_mesh, old_cache = old["mesh"], old["cache"]
+    me = old_mesh.rank
+
+    def coords(m, r):
+        shape = tuple(m.sizes[a] for a in AXES)
+        return dict(zip(AXES, (int(c) for c in np.unravel_index(r, shape))))
+
+    olds = [coords(old_mesh, r) for r in range(old_mesh.size)]
+    news = [coords(mesh, r) for r in range(mesh.size)]
+    old_bpg = old_cache.blocks_per_group
+    send, recv = {}, {}                      # peer -> local block ids
+    for slot, req, g_new, blocks in moves:
+        if blocks is None:
+            continue
+        g_old = old["sched"].group_of_slot(slot)
+        for d, cd in enumerate(news):
+            if axis_index(mesh.sizes, cd, new_axes) != g_new:
+                continue
+            src = min(r for r, c in enumerate(olds)
+                      if axis_index(old_mesh.sizes, c, old_cache.group_axes)
+                      == g_old and c["col"] == cd["col"])
+            if src == me:
+                send.setdefault(d, []).extend(b - g_old * old_bpg
+                                              for b in req.block_ids)
+            if d == me:
+                recv.setdefault(src, []).extend(b - g_new * new_bpg
+                                                for b in blocks)
+    leaves = ("k", "v")
+    ops, into = [], []
+    for peer, idx in sorted(send.items()):
+        if peer != me:
+            ops.append(dist.P2POp(dist.isend, torch.stack(
+                [old["pool"][k][:, idx] for k in leaves]).contiguous(), peer))
+    for peer, idx in sorted(recv.items()):
+        if peer == me:
+            for k in leaves:
+                pool[k][:, idx] = old["pool"][k][:, send[me]]
+            continue
+        ref = pool["k"]
+        buf = torch.empty((2, ref.shape[0], len(idx), *ref.shape[2:]),
+                          dtype=ref.dtype, device=ref.device)
+        ops.append(dist.P2POp(dist.irecv, buf, peer))
+        into.append((idx, buf))
+    if ops:
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+    for idx, buf in into:
+        for i, k in enumerate(leaves):
+            pool[k][:, idx] = buf[i]
+

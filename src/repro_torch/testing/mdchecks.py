@@ -88,6 +88,18 @@ or on ``--layout data,1,1,cols``.  Checks:
   and ``train`` continues on a ``Mesh`` over the survivors from the last
   checkpoint, its state resliced to the new zn: the losses continue the
   uninterrupted run's.
+- ``engine_elastic`` (data > 1): the serve engine re-planned after 3
+  steps onto half the ranks (``InferenceEngine.replan_to``: data halves,
+  the live KV blocks move to their new KV groups over the old mesh, the
+  other ranks go idle): ids identical to the uninterrupted run on the same
+  mesh;
+- ``chaos_serve`` (data > 1): the reference's chaos plan (a NaN row, a
+  dropped step, pool exhaustion, a device loss to half the ranks, seed
+  17): at least one quarantine, one dropped step, one exhaustion, nothing
+  failed, the fault-free ids, and an identical replay from the seed;
+- ``decode_parity``: the dense static decode loop (``runtime/serve_steps``
+  on DenseLM) on the mesh against one rank, per schedule: 3 steps from a
+  zero cache (B 8, S 32) and 3 after an 8 x 16 prefill, ids identical.
 
 Every rank takes the same decisions from the same values, so a failed
 check fails on every rank at once: the error is reduced over the mesh
@@ -1608,12 +1620,245 @@ def check_zero1_elastic(mesh: Mesh, dev, args):
         _drop_dir(mesh, root)
 
 
+# ------------------------------------------------- the engine's faults
+
+# the reference's engine_elastic and chaos_serve requests and engine
+ELASTIC_LENS = (5, 9, 16, 12, 7, 3, 21, 10)
+ELASTIC_NEW = (6, 10, 4, 8, 5, 12, 3, 7)
+ELASTIC_ENGINE = dict(n_slots=8, block_size=4, num_blocks=128,
+                      max_seq_len=64)
+# the reference's chaos plan, its device loss sized for four ranks
+CHAOS_PLAN = ("serve.logits@2:nan(3);serve.step@4:drop_step;"
+              "serve.step@5:pool_exhaust(2);serve.step@8:device_loss({n})")
+CHAOS_SEED = 17
+
+
+# the chaos plan on one device (``chip_smoke.py``'s phase_serve_faults and
+# tests/test_torch_serve_faults.py): a NaN row in slot 3, a straggler, a
+# dropped step, KV-pool exhaustion and a device loss that re-plans onto the
+# one device, seed 17, through ONE_DEVICE_ENGINE; the cache run evicts
+# before the loss.  ONE_DEVICE_COUNTS: per run (workload, features), the
+# counts the reference engine gives on the CPU that hang on the schedule
+# alone, not on the weights (no eos, so every request runs its length).
+ONE_DEVICE_CHAOS = ("serve.logits@2:nan(3);serve.step@3:straggler(0.05);"
+                    "serve.step@4:drop_step;serve.step@5:pool_exhaust(2);"
+                    "serve.step@8:device_loss(1)")
+ONE_DEVICE_ENGINE = dict(n_slots=4, block_size=4, num_blocks=32,
+                         max_seq_len=64)
+_FAULTS = dict(nan_quarantines=1, dropped_steps=1, pool_exhaust_events=1,
+               failed=0)
+ONE_DEVICE_RUNS = {
+    "plain": dict(workload="chaos", features={}, plan=ONE_DEVICE_CHAOS,
+                  counts=dict(_FAULTS, preemptions=1, batch_shrinks=0,
+                              health="healthy", steps=17)),
+    "cache": dict(workload="shared", features=dict(prefix_cache=True),
+                  plan="serve.prefix@3:evict(2);" + ONE_DEVICE_CHAOS,
+                  counts=dict(_FAULTS, preemptions=1, batch_shrinks=0,
+                              health="healthy", steps=11, prefix_hits=6,
+                              prefix_tokens_reused=42, cow_splits=3,
+                              cache_evictions=6)),
+    # speculation: what it accepts hangs on the weights, so the preemptions
+    # and the steps do too
+    "ngram": dict(workload="repetitive",
+                  features=dict(spec_k=2, spec_mode="ngram"),
+                  plan=ONE_DEVICE_CHAOS, counts=dict(_FAULTS)),
+}
+
+
+def fault_workload(kind):
+    """(prompts, new tokens) of the fault runs: the reference's chaos
+    requests (its ``check_chaos_serve``), its shared-system-prompt ones
+    (``check_prefix_cache``) or its repetitive speculation ones
+    (``check_spec_decode``)."""
+    if kind == "shared":
+        rng = np.random.RandomState(21)
+        system = rng.randint(0, 250, (10,)).tolist()
+        prompts = [system + rng.randint(0, 250, (n,)).tolist()
+                   for n in (5, 9, 2, 13, 5, 7)]
+        prompts.append(list(prompts[0]))
+        prompts.append(prompts[1][:12] + rng.randint(0, 250, (6,)).tolist())
+        return prompts, [6, 4, 8, 5, 7, 3, 6, 5]
+    if kind == "repetitive":
+        return _repetitive(250, 8)
+    rng = np.random.RandomState(7)
+    return ([rng.randint(0, 250, (n,)).tolist() for n in ELASTIC_LENS],
+            list(ELASTIC_NEW))
+
+
+def _elastic_model(mesh, dev):
+    """yi-6b on the mesh, fp32, weights from seed 0: reduced on the CPU,
+    at full width with 4 layers on the card."""
+    if dev.type == "cuda":
+        arch = dataclasses.replace(get_arch("yi-6b").model, num_layers=4)
+    else:
+        arch = get_reduced("yi-6b").model
+    run = RunConfig(param_dtype="float32", compute_dtype="float32",
+                    attn_impl="auto")
+    return build_model(arch, mesh.ctx.replace(attn_impl="auto"), run,
+                       device=dev, seed=0, mesh=mesh)
+
+
+def _elastic_run(model, dev, seed, *, plan=None, replan_after=0,
+                 survivors=0):
+    """The reference's requests (prompts from ``RandomState(seed)``)
+    through an engine on ``model``'s mesh, greedy; with a fault ``plan``,
+    or a ``replan_to(survivors)`` after ``replan_after`` steps.  Returns
+    (ids, or None on a rank the re-plan left idle; the engine; the
+    ``Replan`` of ``replan_after``).  Every rank meets at a world barrier
+    after the run."""
+    from ..runtime.faults import FaultInjector, FaultPlan
+    from ..serve import EngineConfig, InferenceEngine, SamplingParams
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, 250, (n,)).tolist() for n in ELASTIC_LENS]
+    eng = InferenceEngine(
+        model, EngineConfig(**ELASTIC_ENGINE), device=dev,
+        injector=(FaultInjector(FaultPlan.parse(plan, seed=CHAOS_SEED))
+                  if plan else None))
+    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=n))
+            for p, n in zip(prompts, ELASTIC_NEW)]
+    for _ in range(replan_after):
+        eng.step()
+    rp = eng.replan_to(survivors) if replan_after else None
+    res = eng.run()
+    if dist.is_initialized():
+        dist.barrier()              # the idle ranks wait here
+    return ([res[r.rid] for r in reqs] if eng.active else None), eng, rp
+
+
+def _leave(eng, model_mesh) -> None:
+    """Drop the process groups of a mesh an engine's re-plan built."""
+    if eng.mesh is not model_mesh:
+        eng.mesh._groups.clear()
+
+
+def check_engine_elastic(mesh: Mesh, dev, args):
+    """The engine re-planned mid-run (on a mesh with data > 1, e.g.
+    ``--layout 2,2,1,1``): the reference's 8 requests through 8 slots, 3
+    steps, then ``replan_to(size / 2)`` (data halves, the tensor-parallel
+    group is kept, the live KV blocks move to their new groups over the
+    old mesh) and the run to its end on the survivors: ids identical to
+    the uninterrupted run on the same mesh."""
+    t0 = time.perf_counter()
+    survivors = mesh.size // 2
+    model = _elastic_model(mesh, dev)
+    want, _, _ = _elastic_run(model, dev, 5)
+    got, eng, rp = _elastic_run(model, dev, 5, replan_after=3,
+                                survivors=survivors)
+    ok = (rp.n_used == survivors and rp.ctx.data == mesh.ctx.data // 2
+          and (got is None) == (mesh.rank >= survivors)
+          and (got is None or got == want))
+    _agree(mesh, dev, ok, f"engine_elastic: replan {rp}, ids {got} vs the "
+                          f"uninterrupted run's {want}")
+    log(mesh, f"  engine_elastic: 3 steps, then replan {mesh.size} -> "
+              f"{rp.n_used} ranks (data {mesh.ctx.data} -> {rp.ctx.data}, "
+              f"{mesh.size - rp.n_used} ranks idle); ids identical to the "
+              f"uninterrupted run "
+              f"({sum(map(len, want))} tokens, {eng.stats.steps} steps, "
+              f"{eng.stats.preemptions} preemptions); "
+              f"{time.perf_counter() - t0:.1f} s")
+    _leave(eng, mesh)
+    log(mesh, "PASS engine_elastic")
+
+
+def check_chaos_serve(mesh: Mesh, dev, args):
+    """The reference's chaos plan on the mesh (data > 1): a NaN row in slot
+    3, a dropped step, KV-pool exhaustion and a device loss to half the
+    ranks, seed 17.  On the survivors: at least one quarantine, one dropped
+    step, one exhaustion, nothing failed, ids identical to the fault-free
+    run on the same mesh; a second run from the seed fires the same
+    schedule and gives the same ids."""
+    t0 = time.perf_counter()
+    plan = CHAOS_PLAN.format(n=mesh.size // 2)
+    model = _elastic_model(mesh, dev)
+    want, _, _ = _elastic_run(model, dev, 7)
+    runs = []
+    for _ in range(2):
+        got, eng, _ = _elastic_run(model, dev, 7, plan=plan)
+        runs.append((got, list(eng.injector.fired), eng.stats))
+        _leave(eng, mesh)
+    (got, fired, s), (got2, fired2, _) = runs
+    ok = (got is None or (
+        s.nan_quarantines >= 1 and s.dropped_steps == 1
+        and s.pool_exhaust_events == 1 and s.failed == 0 and got == want
+        and fired2 == fired and got2 == got))
+    _agree(mesh, dev, ok, f"chaos_serve: quarantines {s.nan_quarantines}, "
+                          f"dropped {s.dropped_steps}, exhausts "
+                          f"{s.pool_exhaust_events}, failed {s.failed}, "
+                          f"fired {fired} / {fired2}, ids {got} / {got2} vs "
+                          f"{want}")
+    log(mesh, f"  chaos_serve: plan {plan} (seed {CHAOS_SEED}): "
+              f"(quarantines, dropped steps, pool exhausts, preemptions, "
+              f"failed) ({s.nan_quarantines}, {s.dropped_steps}, "
+              f"{s.pool_exhaust_events}, {s.preemptions}, {s.failed}); "
+              f"fired {[f'{a}@{b}:{c}' for a, b, c in fired]}; ids "
+              f"identical to the fault-free run, the replay identical; "
+              f"{time.perf_counter() - t0:.1f} s")
+    log(mesh, "PASS chaos_serve")
+
+
+# --------------------------------------------------------- decode_parity
+
+def check_decode_parity(mesh: Mesh, dev, args):
+    """The dense static decode loop (``runtime/serve_steps`` on DenseLM) on
+    the mesh against one rank on the same weights, per schedule: the
+    reference's check (B 8, a zero cache of S 32, ids arange(8) % 100, 3
+    greedy steps), then a prefill of 8 x 16 prompts, its cache moved to
+    the decode layout (19 positions) and 3 steps: ids identical."""
+    scheds = ("fused",) if mesh.ctx.mode == "megatron1d" else ("fused",
+                                                              "ring")
+    B, S, T, steps = 8, 32, 16, 3
+    for sched in scheds:
+        t0 = time.perf_counter()
+        case = (dict(arch="yi-6b", layers=4) if dev.type == "cuda"
+                else dict(arch="yi-6b", reduced=True))
+        model, one = _models(mesh, dev, dict(case, schedule=sched))
+        out = []
+        for m in (model, one):
+            dec = build_decode_step(m, ShapeSpec("d", S, B, "decode"))
+            cache = {k: torch.zeros(shape, dtype=dt, device=dev)
+                     for k, (shape, dt) in m.cache_abstract(
+                         B, S, dec.plan).items()}
+            ids = (torch.arange(B, dtype=torch.int32, device=dev)
+                   % 100)[:, None]
+            seq = [ids]
+            for t in range(steps):
+                ids, cache = dec.fn(cache, ids, t)
+                seq.append(ids)
+            rng = np.random.default_rng(8)
+            tokens = torch.from_numpy(rng.integers(
+                0, 250, (B, T)).astype(np.int32)).to(dev)
+            pre = build_prefill_step(m, ShapeSpec("p", T, B, "prefill"))
+            dec = build_decode_step(m, ShapeSpec("d", T + steps, B,
+                                                 "decode"))
+            ids, cache = pre.fn(tokens)
+            cache = dec.from_prefill(cache)
+            seq.append(ids)
+            for t in range(steps):
+                ids, cache = dec.fn(cache, ids, T + t)
+                seq.append(ids)
+            out.append(torch.cat(seq, 1).cpu())
+            if m is model:
+                plan = dec.plan.kind
+        _agree(mesh, dev, torch.equal(out[0], out[1]),
+               f"decode_parity {sched}: ids on the mesh {out[0].tolist()} "
+               f"vs one rank {out[1].tolist()}")
+        log(mesh, f"  decode_parity {sched}: plan {plan}, {steps} steps "
+                  f"from a zero cache and {steps} after a {B} x {T} "
+                  f"prefill: ids identical to one rank; "
+                  f"{time.perf_counter() - t0:.1f} s")
+        del model, one
+    log(mesh, "PASS decode_parity")
+
+
 CHECKS = {"collectives": check_collectives, "summa_exact": check_summa_exact,
           "serve_engine": check_serve_engine,
           "ssm_serve": check_ssm_serve,
           "train_parity": check_train_parity,
           "train_restart": check_train_restart,
-          "zero1_elastic": check_zero1_elastic}
+          "zero1_elastic": check_zero1_elastic,
+          "engine_elastic": check_engine_elastic,
+          "chaos_serve": check_chaos_serve,
+          "decode_parity": check_decode_parity}
 
 
 def main(argv=None):

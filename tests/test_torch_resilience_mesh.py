@@ -1,5 +1,6 @@
-"""Fault-tolerant training across ranks: two spawns of 4 CPU ranks under
-torchrun with gloo, started together with the module's first test.
+"""Fault tolerance across ranks, training and serving: two spawns of 4 CPU
+ranks under torchrun with gloo, started together with the module's first
+test.
 
 - ``train_restart`` on [2, 2, 1] (``--layout 1,1,2,2``): on the fused
   schedule a NaN step, a damaged checkpoint and a crash, on the ring a NaN
@@ -12,7 +13,16 @@ torchrun with gloo, started together with the module's first test.
   2,2,1,1``): an injected device loss before step 4, ``replan`` onto 2
   ranks (data 1, accum 2), and ``train`` again on a mesh over ranks 0-1,
   the optimizer state resliced from zn 4 to zn 2: its losses continue the
-  uninterrupted 4-rank run's within 1e-5.
+  uninterrupted 4-rank run's within 1e-5.  In the same spawn the serve
+  engine on that mesh (reduced yi-6b, fp32, the reference's 8 requests,
+  8 slots, 128 blocks of 4): ``engine_elastic`` re-plans onto ranks 0-1
+  after 3 steps (data 2 -> 1), the live KV blocks moved to their new KV
+  groups, and keeps the uninterrupted run's ids; ``chaos_serve`` runs the
+  reference's chaos plan with the device loss sized for four (a NaN row, a
+  dropped step, pool exhaustion, a loss to 2 ranks, seed 17): one
+  quarantine, one dropped step, one exhaustion, nothing failed, the
+  fault-free ids, and a second run from the seed fires the same schedule
+  and gives the same ids.
 
 The uninterrupted runs are the port's own on the same mesh, which
 ``tests/test_torch_summa.py`` (``train_parity``) holds to the port's one
@@ -30,8 +40,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # longest file, tests/test_multidevice.py, runs beside them and sets
 # its wall time.
 NICE = ("nice", "-n", "5")
-# check: (ranks, data,depth,rows,cols)
-SPAWNS = {"train_restart": (4, "1,1,2,2"), "zero1_elastic": (4, "2,2,1,1")}
+# spawn: (ranks, data,depth,rows,cols, the checks it runs)
+SPAWNS = {"train_restart": (4, "1,1,2,2", ("train_restart",)),
+          "elastic": (4, "2,2,1,1", ("zero1_elastic", "engine_elastic",
+                                     "chaos_serve"))}
 SPAWN_TIMEOUT_S = 300
 
 
@@ -41,9 +53,9 @@ def spawns():
     procs = {name: subprocess.Popen(
         [*NICE, sys.executable, "-m", "torch.distributed.run", "--standalone",
          f"--nproc-per-node={n}", "-m", "repro_torch.testing.mdchecks",
-         name, "--device", "cpu", "--layout", layout],
+         *checks, "--device", "cpu", "--layout", layout],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for name, (n, layout) in SPAWNS.items()}
+        text=True) for name, (n, layout, checks) in SPAWNS.items()}
     done = {}
 
     def result(name):
@@ -66,7 +78,27 @@ def test_train_restart_on_cpu_ranks(spawns):
 
 
 def test_zero1_elastic_on_cpu_ranks(spawns):
-    rc, out = spawns("zero1_elastic")
+    rc, out = spawns("elastic")
     assert rc == 0 and "PASS zero1_elastic" in out, out[-4000:]
     assert "replan 4 -> 2 ranks (data 2 -> 1, accum 2)" in out
     assert "embed state zn 4 -> 2" in out
+
+
+def test_engine_elastic_on_cpu_ranks(spawns):
+    rc, out = spawns("elastic")
+    assert rc == 0 and "PASS engine_elastic" in out, out[-4000:]
+    assert ("3 steps, then replan 4 -> 2 ranks (data 2 -> 1, 2 ranks idle); "
+            "ids identical to the uninterrupted run" in out)
+
+
+def test_chaos_serve_on_cpu_ranks(spawns):
+    rc, out = spawns("elastic")
+    assert rc == 0 and "PASS chaos_serve" in out, out[-4000:]
+    line = next(x for x in out.splitlines() if "  chaos_serve: plan" in x)
+    assert "device_loss(2) (seed 17)" in line
+    # (quarantines, dropped steps, pool exhausts, preemptions, failed)
+    counts = line.split("failed) (")[1].split(")")[0]
+    q, d, e, _, f = (int(v) for v in counts.split(", "))
+    assert q >= 1 and d == 1 and e == 1 and f == 0
+    assert "ids identical to the fault-free run, the replay identical" in line
+

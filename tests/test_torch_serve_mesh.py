@@ -18,7 +18,10 @@ plain engine's); the plain cases' prefill and decode logits of one request
 must agree within 1e-4 of their max.  Here the ids of the cases on the
 reference's ``model.init`` params must equal the reference's one-device
 ``InferenceEngine`` (jnp attention) with the same features, computed while
-the spawn runs.
+the spawn runs.  The same spawn runs ``decode_parity``: the dense static
+decode loop (``runtime/serve_steps`` on DenseLM) on the mesh against one
+rank, fused and ring, 3 steps from a zero cache (B 8, S 32) and 3 after an
+8 x 16 prefill, ids identical.
 """
 import dataclasses
 import json
@@ -113,7 +116,8 @@ def runs(tmp_path_factory):
     proc = subprocess.Popen(
         [*NICE, sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node=4", "-m", "repro_torch.testing.mdchecks",
-         "serve_engine", "--device", "cpu", "--layout", "1,1,2,2",
+         "serve_engine", "decode_parity", "--device", "cpu", "--layout",
+         "1,1,2,2",
          "--cases", str(tmp / "cases.json"), "--out", str(tmp / "out.json")],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True)
@@ -129,12 +133,12 @@ def runs(tmp_path_factory):
         if proc.poll() is None:
             proc.kill()
     assert proc.returncode == 0, out[-4000:]
-    return json.loads((tmp / "out.json").read_text()), want
+    return json.loads((tmp / "out.json").read_text()), want, out
 
 
 @pytest.mark.parametrize("case", [c["name"] for c in CASES])
 def test_mesh_engine_matches_reference(runs, case):
-    got, want = runs
+    got, want, _ = runs
     spec = {c["name"]: c for c in CASES}[case]
     if case in want:
         assert got[case]["ids"] == want[case]
@@ -149,3 +153,13 @@ def test_mesh_engine_matches_reference(runs, case):
         assert min(got[case]["draft_steps"]) > 0
     if not any(k in spec for k in FEATURES):
         assert got[case]["logit_rel_err"] <= 1e-4
+
+
+def test_static_decode_on_mesh_matches_one_rank(runs):
+    out = runs[2]
+    assert "PASS decode_parity" in out, out[-4000:]
+    for sched in ("fused", "ring"):
+        assert (f"decode_parity {sched}: plan decode, 3 steps from a zero "
+                f"cache and 3 after a 8 x 16 prefill: ids identical to one "
+                f"rank" in out)
+
